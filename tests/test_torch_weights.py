@@ -1,0 +1,82 @@
+"""Weights loading, artifact fingerprint and the PIL-free PNG reader of the
+PyTorch port vs the JAX package."""
+
+import glob
+import io
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from vanishing_points_2017_tpu import weights as jweights
+from vanishing_points_2017_tpu.data import datasets as jdatasets
+from vanishing_points_2017_tpu.data import io as jio
+from vanishing_points_2017_tpu_torch import weights as tweights
+from vanishing_points_2017_tpu_torch.data import io as tio
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENES = sorted(glob.glob(os.path.join(ROOT, "assets", "examples",
+                                       "scene_*.png")))
+
+
+def test_fingerprint_equals_jax_weights_identity():
+    assert tweights.artifact_fingerprint(tweights.default_weights_path()) \
+        == jweights.weights_identity()
+    assert tweights.artifact_fingerprint(tweights.default_mean_path()) \
+        == jweights.mean_identity()
+    assert tweights.artifact_fingerprint(None) == "none"
+
+
+def test_params_from_numpy_round_trip():
+    """The shipped artifact through params_from_numpy: convs HWIO -> OIHW,
+    factorized fc6/fc7 kept as u/v, every value unchanged."""
+    jp = jweights.params_from_npz(tweights.default_weights_path(),
+                                  as_numpy=True)
+    flat = {f"{k}/{kk}": v for k, d in jp.items() for kk, v in d.items()}
+    for src in (jp, flat):
+        tp = tweights.params_from_numpy(src)
+        assert set(tp) == set(jp)
+        for layer, d in jp.items():
+            for k, v in d.items():
+                got = tp[layer][k].numpy()
+                if k == "w" and v.ndim == 4:
+                    got = got.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+                np.testing.assert_array_equal(got, v)
+    assert "u" in tp["fc6"] and "v" in tp["fc7"]
+    params, mean = tweights.load_params_and_mean()
+    assert params["conv2"]["w"].shape == (256, 48, 5, 5)
+    assert mean.shape == (500, 500) and mean.dtype == torch.float32
+
+
+@pytest.mark.parametrize("path", SCENES, ids=os.path.basename)
+def test_png_reader_equals_pil(path):
+    got = tio.load_image(path)
+    np.testing.assert_array_equal(got, jio.load_image(path))
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA", "LA"])
+def test_png_reader_modes_and_filters(mode):
+    """PIL's encoder picks filters per row (all five appear on a noisy
+    gradient); every colour type the reader accepts decodes exactly."""
+    rng = np.random.default_rng(0)
+    ch = {"L": 1, "RGB": 3, "RGBA": 4, "LA": 2}[mode]
+    base = np.linspace(0, 255, 37 * 29 * ch).reshape(37, 29, ch)
+    arr = np.clip(base + rng.normal(0, 20, base.shape), 0, 255).astype(
+        np.uint8)
+    arr = arr[..., 0] if ch == 1 else arr
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode).save(buf, "PNG", optimize=True)
+    dec = tio.decode_png(buf.getvalue())
+    np.testing.assert_array_equal(dec, arr)
+
+
+def test_rgb2gray_and_horizon_error_match_jax():
+    rgb = np.random.default_rng(3).integers(0, 256, (5, 7, 3)).astype(np.uint8)
+    np.testing.assert_array_equal(tio.rgb2gray(rgb), jio.rgb2gray(rgb))
+    est = np.array([0.01, 1.0, 0.05])
+    true = np.array([-0.02, 1.0, 0.01])
+    assert tio.normalized_horizon_error(est, true, 640, 480) == \
+        jdatasets.normalized_horizon_error(est, true, 640, 480)
+

@@ -1,0 +1,106 @@
+"""CNN parameter and mean-image loading (numpy only).
+
+Counterpart of ``vanishing_points_2017_tpu/weights.py``: the shipped
+artifact is ``assets/weights_compact.npz`` (float16 storage, conv weights
+in HWIO, fc6/fc7 factorized as rank-256 ``u``/``v`` pairs) plus
+``assets/mean.npy``. :func:`params_from_numpy` turns the JAX package's
+parameter layout into this port's (OIHW conv weights, ``(in, out)`` fc
+matrices kept as they are), so either package's checkpoints load here.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import os
+
+import numpy as np
+import torch
+
+
+def _repo_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def default_weights_path() -> str:
+    return os.path.join(_repo_root(), "assets", "weights_compact.npz")
+
+
+def default_mean_path() -> str:
+    return os.path.join(_repo_root(), "assets", "mean.npy")
+
+
+@functools.lru_cache(maxsize=32)
+def _fingerprint_cached(path: str, size: int, mtime_ns: int) -> str:
+    h = hashlib.blake2b(digest_size=8)
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 22), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def artifact_fingerprint(path: str | None) -> str:
+    """Short content hash of a weights/mean artifact file — the same
+    digest the JAX package reports (blake2b, 8 bytes), so records from
+    both packages name an artifact alike. "none" for a missing file."""
+    if not path or not os.path.isfile(path):
+        return "none"
+    st = os.stat(path)
+    return _fingerprint_cached(os.path.abspath(path), st.st_size,
+                               st.st_mtime_ns)
+
+
+def params_npz_numpy(path: str) -> dict:
+    """npz checkpoint -> nested ``{layer: {key: float32 ndarray}}`` in the
+    JAX package's layout (storage may be float16)."""
+    params: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            if key == "__step__":
+                continue
+            layer, k = key.split("/")
+            v = z[key]
+            if v.dtype.kind == "f":
+                v = v.astype(np.float32)
+            params.setdefault(layer, {})[k] = v
+    return params
+
+
+def params_from_numpy(params, device: str | torch.device = "cpu") -> dict:
+    """JAX-layout parameters (nested dict, or flat ``"layer/key"`` dict) ->
+    this port's layout as float32 tensors on ``device``.
+
+    Conv ``w`` goes HWIO -> OIHW (``F.conv2d``'s layout, grouped convs
+    included: I is already in_channels / groups). Fully-connected ``w``,
+    ``u`` and ``v`` stay ``(in, out)`` matrices — the forward pass computes
+    ``x @ w`` (``x @ u @ v`` for a factorized layer) exactly as the JAX
+    forward does. Biases are unchanged.
+    """
+    nested: dict = {}
+    for key, val in params.items():
+        if isinstance(val, dict):
+            nested.setdefault(key, {}).update(val)
+        else:
+            layer, k = key.split("/")
+            nested.setdefault(layer, {})[k] = val
+    out: dict = {}
+    for layer, d in nested.items():
+        out[layer] = {}
+        for k, v in d.items():
+            a = np.asarray(v, np.float32)
+            if k == "w" and a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            out[layer][k] = torch.tensor(a, device=device)
+    return out
+
+
+def load_params_and_mean(weights_path: str | None = None,
+                         mean_path: str | None = None,
+                         device: str | torch.device = "cpu"):
+    """-> (params, mean) as tensors on ``device``; the shipped artifacts
+    by default. Raises when a named file does not exist."""
+    weights_path = weights_path or default_weights_path()
+    mean_path = mean_path or default_mean_path()
+    params = params_from_numpy(params_npz_numpy(weights_path), device)
+    mean = torch.from_numpy(np.load(mean_path).astype(np.float32)).to(device)
+    return params, mean
