@@ -93,3 +93,49 @@ def test_preprocess_matches_jax():
     ref = np.asarray(jcnn.preprocess(jnp.asarray(img), jnp.asarray(mean)))
     got = tcnn.preprocess(torch.from_numpy(img), torch.from_numpy(mean))
     np.testing.assert_array_equal(got.numpy()[:, 0], ref[..., 0])
+
+
+def test_grid_independent_of_batch(small_net):
+    """VPNet runs in fixed chunks (one image on the CPU; also chunks of 2
+    through batching.in_chunks, to cover the padding): an image's grid is
+    bit-identical (torch.equal) alone and at batch 3 and 5, at any
+    position in the batch."""
+    from vanishing_points_2017_tpu_torch.batching import in_chunks
+
+    _, npp, x = small_net
+    net = tcnn.VPNet(params_from_numpy(npp), compute_dtype=torch.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    runs = {None: net, 2: lambda t: in_chunks(net.forward_unchunked, [t], 2)}
+    for chunk, run in runs.items():
+        alone = [run(xt[i:i + 1])[0] for i in range(2)]
+        for rows in ([1, 0, 1], [0, 1, 1, 0, 0]):
+            got = run(xt[rows])
+            assert got.shape == (len(rows), 20, 20)
+            for pos, i in enumerate(rows):
+                assert torch.equal(got[pos], alone[i]), (chunk, rows, pos)
+
+
+def test_in_chunks_pads_and_trims():
+    """batching.in_chunks pads the last chunk with zeros, calls fn on whole
+    chunks only, and returns tensors, tuples and named tuples of the
+    original batch size."""
+    from typing import NamedTuple
+
+    from vanishing_points_2017_tpu_torch.batching import in_chunks
+
+    class Pair(NamedTuple):
+        a: torch.Tensor
+        b: torch.Tensor
+
+    seen = []
+
+    def fn(x, m):
+        seen.append(x.shape[0])
+        return Pair(x * 2, m), x.sum(1)
+
+    x = torch.arange(10.0).reshape(5, 2)
+    m = torch.ones(5, dtype=torch.bool)
+    pair, s = in_chunks(fn, [x, m], chunk=2)
+    assert seen == [2, 2, 2]
+    assert isinstance(pair, Pair) and torch.equal(pair.a, x * 2)
+    assert torch.equal(pair.b, m) and torch.equal(s, x.sum(1))

@@ -160,8 +160,10 @@ def test_port_imports_no_jax():
     """Importing the port (every module) must not import jax or the JAX
     package: the GPU machine has neither."""
     code = (
-        "import sys\n"
-        "import vanishing_points_2017_tpu_torch.pipeline\n"
+        "import importlib, pkgutil, sys\n"
+        "import vanishing_points_2017_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
         "import vanishing_points_2017_tpu_torch.kernels as k\n"
         "k.all_kernels()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

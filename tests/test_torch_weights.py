@@ -80,3 +80,40 @@ def test_rgb2gray_and_horizon_error_match_jax():
     assert tio.normalized_horizon_error(est, true, 640, 480) == \
         jdatasets.normalized_horizon_error(est, true, 640, 480)
 
+
+
+def test_weights_and_mean_identity_equal_jax():
+    assert tweights.weights_identity() == jweights.weights_identity()
+    assert tweights.mean_identity() == jweights.mean_identity()
+    path = tweights.default_mean_path()
+    assert tweights.mean_identity(path) == jweights.mean_identity(path)
+
+
+def test_default_weights_path_prefers_newer_dense(tmp_path, monkeypatch,
+                                                  capsys):
+    """The JAX package's resolution: a dense retrain newer than the compact
+    artifact wins with a notice on stderr; an older one is ignored, also
+    with a notice; without the compact artifact the dense one is used."""
+    assets = tmp_path / "assets"
+    assets.mkdir()
+    compact, dense = assets / "weights_compact.npz", assets / "weights.npz"
+    monkeypatch.setattr(tweights, "_repo_root", lambda: str(tmp_path))
+    monkeypatch.setattr(tweights, "_notified", set())
+    np.savez(dense, **{"fc8_20x20/b": np.zeros(4, np.float32)})
+    assert tweights.default_weights_path() == str(dense)
+    np.savez(compact, **{"fc8_20x20/b": np.ones(4, np.float32)})
+    os.utime(dense, (1e9, 1e9))
+    assert tweights.default_weights_path() == str(compact)
+    assert "IGNORING stale dense" in capsys.readouterr().err
+    os.utime(dense, (2e9, 2e9))
+    assert tweights.default_weights_path() == str(dense)
+    assert "using dense retrain" in capsys.readouterr().err
+    assert tweights.weights_identity() == tweights.artifact_fingerprint(
+        str(dense))
+
+
+def test_caffe_artifacts_are_refused():
+    for kw in ({"weights_path": "w.caffemodel"},
+               {"mean_path": "m.binaryproto"}):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tweights.load_params_and_mean(**kw)

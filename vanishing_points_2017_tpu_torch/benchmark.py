@@ -1,0 +1,229 @@
+"""Benchmark driver of the PyTorch port (the root ``benchmark.py`` of the
+JAX package, on a torch device).
+
+    python -m vanishing_points_2017_tpu_torch.benchmark --synthetic --run_em
+    python -m vanishing_points_2017_tpu_torch.benchmark --synthetic --run_em \\
+        --device_detect
+
+Picks a dataset, computes the per-image stages that are not cached yet,
+then prints each image's ``max_error`` and the horizon-error AUC at cutoff
+0.25. Stage 1 runs on the host: load + LSD (``Pipeline.ingest``), or load
++ grayscale only with ``--device_detect``. Stage 2 (``--run_cnn`` or
+``--run_em``, one fused stage) runs the rest on ``--device`` in batches of
+``--batch``, the last batch padded with copies. Stage results live in
+``.npz`` files under ``--result_dir`` (by default ``build/results/`` of
+this checkout, so two checkouts never serve each other's results), keyed
+by the configuration, the path and the weights and mean fingerprints.
+
+Not ported yet (ROADMAP.md): ``--yud``/``--ecd``/``--hlw`` (they need a
+JPEG decoder), Caffe weights, and the CDF plot (no matplotlib on the GPU
+machine). The JAX driver's ``--update_datalist`` (the real datasets' file
+lists) and ``--no_weights_warn`` (the port always loads a weights
+artifact) have nothing to act on here and are not accepted.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+RESULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "build", "results")
+NOT_PORTED = {"yud": "York Urban", "ecd": "Eurasian Cities",
+              "hlw": "Horizon Lines in the Wild"}
+
+
+def cache_key(cfg, device_detect: bool) -> str:
+    """Result identity: device-detector results also key on the detector
+    configuration, host-LSD results do not depend on it."""
+    return cfg.cache_key() + ("_devdet_" + cfg.det_key() if device_detect
+                              else "")
+
+
+def ingest_stage(pipe, records, cache, target, device_detect: bool,
+                 update: bool = False) -> float:
+    """Stage 1 for every record not cached yet; returns its host seconds."""
+    seconds = 0.0
+    for rec in records:
+        stage = "gray" if device_detect else "lines"
+        if cache.has(rec.name, stage) and not update:
+            continue
+        img = rec.image if rec.image is not None else rec.image_path
+        t0 = time.perf_counter()
+        if device_detect:
+            host = pipe.ingest_image(img, target_size=target)
+        else:
+            host = pipe.ingest(img, target_size=target)
+        seconds += time.perf_counter() - t0
+        if device_detect:
+            cache.save(rec.name, "gray", gray=host["gray"],
+                       image_shape=np.asarray(host["image_shape"]))
+            print(f"gray: {rec.name}  shape={host['image_shape']}")
+        else:
+            cache.save(rec.name, "lines", l=host["l"], lp=host["lp"],
+                       lmask=host["lmask"], segments=host["segments"],
+                       image_shape=np.asarray(host["image_shape"]))
+            print(f"lines: {rec.name}  segments={host['segments'].shape[0]}")
+    return seconds
+
+
+def device_stage(pipe, records, cache, result_stage: str, batch: int,
+                 device_detect: bool, update: bool = False):
+    """Stage 2 for every record without a result; returns (images,
+    seconds). Images are batched in record order (grouped by shape with
+    ``device_detect``), the last batch of a group padded with copies of
+    its last image, so the batch size is always ``batch``."""
+    todo = [r for r in records
+            if update or not cache.has(r.name, result_stage)]
+    if device_detect:
+        by_shape: dict[tuple, list] = {}
+        for r in todo:
+            g = cache.load(r.name, "gray")
+            by_shape.setdefault(tuple(g["image_shape"]), []).append(
+                (r, g["gray"]))
+        groups = [chunk for _, recs in sorted(by_shape.items())
+                  for chunk in (recs[i:i + batch]
+                                for i in range(0, len(recs), batch))]
+    else:
+        groups = [[(r, None) for r in todo[i:i + batch]]
+                  for i in range(0, len(todo), batch)]
+    t0 = time.perf_counter()
+    n_done = 0
+    for gi, chunk in enumerate(groups):
+        recs = [r for r, _ in chunk]
+        if device_detect:
+            items = [g for _, g in chunk]
+        else:
+            items = [cache.load(r.name, "lines") for r in recs]
+        items += [items[-1]] * (batch - len(items))
+        out = (pipe.process_images(items) if device_detect
+               else pipe.process_batch(items))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        for j, rec in enumerate(recs):
+            cache.save(rec.name, result_stage,
+                       **{k: v[j] for k, v in out.items()})
+        n_done += len(recs)
+        print(f"device batch {gi}: {len(recs)} imgs")
+    return n_done, time.perf_counter() - t0
+
+
+def horizon_errors(records, cache, result_stage: str, device_detect: bool,
+                   start: int = 0):
+    """The reference's eval loop: each evaluated image's normalized
+    horizon error (printed as ``max_error``), skipping the first ``start``
+    records; -> (errors, skipped)."""
+    from .data.io import normalized_horizon_error
+
+    errors, skipped = [], 0
+    for count, rec in enumerate(records, 1):
+        if count <= start:
+            continue
+        if rec.true_horizon is None or not cache.has(rec.name, result_stage):
+            skipped += 1
+            continue
+        res = cache.load(rec.name, result_stage)
+        shape = cache.load(rec.name, "gray" if device_detect
+                           else "lines")["image_shape"]
+        est = np.cross(res["hp1"].astype(np.float64),
+                       res["hp2"].astype(np.float64))
+        err = normalized_horizon_error(est, rec.true_horizon,
+                                       width=int(shape[1]),
+                                       height=int(shape[0]))
+        print(f"max_error: {err}")
+        errors.append(err)
+    return np.array(errors), skipped
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    for flag, name in NOT_PORTED.items():
+        ap.add_argument(f"--{flag}", action="store_true",
+                        help=f"{name} (not ported yet)")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="self-contained synthetic benchmark (no downloads)")
+    ap.add_argument("--dataset_dir", default=None,
+                    help="dataset root (YUD/ECD/HLW; not ported yet)")
+    ap.add_argument("--result_dir", default=RESULT_DIR,
+                    help="stage-cache directory (default: build/results/ "
+                         "of this checkout)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu for the tests)")
+    ap.add_argument("--update_datafiles", action="store_true",
+                    help="recompute cached stages")
+    ap.add_argument("--run_cnn", action="store_true",
+                    help="run the fused CNN+EM device stage")
+    ap.add_argument("--run_em", action="store_true",
+                    help="alias of --run_cnn (stages are fused)")
+    ap.add_argument("--weights", default=None, help=".npz params to load")
+    ap.add_argument("--mean", default=None, help="mean image (.npy)")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="device batch for the fused stage")
+    ap.add_argument("--device_detect", action="store_true",
+                    help="line detection on the device (no host LSD)")
+    ap.add_argument("--num_synthetic", type=int, default=50)
+    ap.add_argument("--consensus", type=int, default=0, metavar="K",
+                    help="K-member dropout-ensemble horizon (medoid pick); "
+                         "0 = single EM. Enters the result-cache identity")
+    args = ap.parse_args(argv)
+
+    for flag, name in NOT_PORTED.items():
+        if getattr(args, flag):
+            ap.error(f"--{flag} ({name}) is not ported yet: it needs a JPEG "
+                     "decoder (see ROADMAP.md)")
+    if not args.synthetic:
+        ap.error("pick a dataset: --synthetic (--yud/--ecd/--hlw are not "
+                 "ported yet)")
+
+    from . import weights as wload
+    from .data import datasets as dsets
+    from .data.cache import StageCache
+    from .metrics import calc_auc
+    from .pipeline import Pipeline, PipelineConfig, require_device
+
+    dev = require_device(args.device)
+    cfg = PipelineConfig(horizon_consensus=args.consensus)
+    params, mean = wload.load_params_and_mean(args.weights, args.mean,
+                                              device=dev)
+    pipe = Pipeline(params, mean, cfg, device=dev)
+    name, target = "synthetic", None
+    records, start = dsets.synthetic_records(count=args.num_synthetic)
+
+    cache = StageCache(os.path.join(args.result_dir, name),
+                       cache_key(cfg, args.device_detect))
+    wfp = wload.weights_identity(args.weights)
+    mfp = wload.mean_identity(args.mean)
+    result_stage = "result_w" + wfp + "_m" + mfp
+    print(f"dataset: {name}  images: {len(records)}  skip: {start}  "
+          f"weights: {wfp}  mean: {mfp}  device: {dev}")
+
+    ingest_stage(pipe, records, cache, target, args.device_detect,
+                 args.update_datafiles)
+    if args.run_cnn or args.run_em:
+        n_done, dt = device_stage(pipe, records, cache, result_stage,
+                                  args.batch, args.device_detect,
+                                  args.update_datafiles)
+        if n_done:
+            print(f"device stage: {n_done} imgs in {dt:.2f}s "
+                  f"({n_done / dt:.2f} img/s)")
+
+    start_time = time.time()
+    errors, skipped = horizon_errors(records, cache, result_stage,
+                                     args.device_detect, start)
+    print("time elapsed: ", time.time() - start_time)
+    print(f"evaluated: {len(errors)} / {len(records) - start} "
+          f"(skipped: {skipped})")
+    if not len(errors):
+        print("no evaluated images (missing results or ground truth)")
+        return 1
+    auc, _ = calc_auc(errors, cutoff=0.25)
+    print("AUC: ", auc)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

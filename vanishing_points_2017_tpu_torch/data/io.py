@@ -1,14 +1,18 @@
-"""Host-side image ingest without PIL.
+"""Host-side image ingest without PIL (``data/io.py`` of the JAX package).
 
-The GPU machine this port targets has no PIL, so :func:`load_image` decodes
-PNG itself with ``zlib`` and numpy: 8-bit grayscale, grayscale+alpha, RGB
-and RGBA, non-interlaced (everything the bundled scenes and the usual
-exported photos use). ``rgb2gray`` and ``normalized_horizon_error`` are the
-JAX package's ``data/io.py`` and ``data/datasets.py`` functions.
+The port does not use PIL, so :func:`load_image` decodes PNG itself with
+``zlib`` and numpy: 8-bit grayscale, grayscale+alpha, RGB and RGBA,
+non-interlaced (everything the bundled scenes and the usual exported
+photos use); other formats, JPEG included, raise. :func:`resize_max`
+reproduces Pillow's LANCZOS resize pixel for pixel. :func:`detect_lsd_lines`
+runs the host LSD (``lsd.py``) and normalizes its segments.
+``rgb2gray`` and ``normalized_horizon_error`` are the JAX package's
+``data/io.py`` and ``data/datasets.py`` functions.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
@@ -91,13 +95,97 @@ def decode_png(blob: bytes) -> np.ndarray:
 
 def load_image(path: str) -> np.ndarray:
     """PNG file -> RGB (or grayscale) uint8 array; an alpha channel is
-    dropped, like the JAX package's ``convert("RGB")``."""
+    dropped, like the JAX package's ``convert("RGB")``. Any other format
+    (JPEG included) raises: the port has no decoder for it yet."""
     with open(path, "rb") as f:
-        img = decode_png(f.read())
+        blob = f.read()
+    if blob[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file; the PyTorch port reads "
+                         "PNG only (JPEG decoding is not ported yet, see "
+                         "ROADMAP.md)")
+    img = decode_png(blob)
     if img.ndim == 3:
         img = img[..., :3] if img.shape[2] == 4 else (
             img[..., 0] if img.shape[2] == 2 else img)
     return np.ascontiguousarray(img)
+
+
+# Pillow's 8-bit resampling (libImaging/Resample.c): coefficients in fixed
+# point with 22 fraction bits, a half added before the shift, the result
+# clipped to 0..255 after each pass.
+_PRECISION_BITS = 22
+_LANCZOS_SUPPORT = 3.0
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    if -_LANCZOS_SUPPORT <= x < _LANCZOS_SUPPORT:
+        return _sinc(x) * _sinc(x / 3.0)
+    return 0.0
+
+
+def _lanczos_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) fixed-point Lanczos-3 weights, float64 holding
+    integers (Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc``,
+    in its operation order): the support widens with the downscale factor,
+    each row's taps are normalised to sum 1, then rounded half away from
+    zero to 22 fraction bits."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = _LANCZOS_SUPPORT * filterscale
+    ss = 1.0 / filterscale
+    one = float(1 << _PRECISION_BITS)
+    mat = np.zeros((out_size, in_size), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        w = [_lanczos((x - center + 0.5) * ss) for x in range(xmin, xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        for i, v in enumerate(w):
+            v = v / ww if ww != 0.0 else v
+            mat[xx, xmin + i] = math.trunc(v * one + (-0.5 if v < 0 else 0.5))
+    return mat
+
+
+def _resample_rows(img: np.ndarray, mat: np.ndarray) -> np.ndarray:
+    """One 8-bit pass along axis 1 of (H, W, C) uint8. Products of 8-bit
+    pixels and 22-bit weights sum below 2**31, so the float64 product is
+    exact whatever the summation order."""
+    acc = np.einsum("hwc,ow->hoc", img.astype(np.float64), mat, optimize=True)
+    out = np.floor((acc + (1 << (_PRECISION_BITS - 1)))
+                   / (1 << _PRECISION_BITS))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def resize_max(image: np.ndarray, target: int) -> np.ndarray:
+    """Resize so the image fits in a target x target box, preserving aspect
+    ratio (ImageMagick's ``convert -resize NxN`` semantics), with Pillow's
+    ``Image.resize(..., LANCZOS)`` arithmetic on 8-bit L or RGB images:
+    the horizontal pass first, then the vertical pass."""
+    h, w = image.shape[0], image.shape[1]
+    scale = target / max(w, h)
+    nw, nh = max(1, round(w * scale)), max(1, round(h * scale))
+    if (nw, nh) == (w, h):
+        return image
+    if image.dtype != np.uint8 or image.ndim not in (2, 3):
+        raise ValueError("resize_max: expected an 8-bit L or RGB image")
+    out = image if image.ndim == 3 else image[..., None]
+    if nw != w:
+        out = _resample_rows(out, _lanczos_matrix(w, nw))
+    if nh != h:
+        out = _resample_rows(out.transpose(1, 0, 2),
+                             _lanczos_matrix(h, nh)).transpose(1, 0, 2)
+    out = np.ascontiguousarray(out)
+    return out if image.ndim == 3 else out[..., 0]
 
 
 def rgb2gray(image: np.ndarray) -> np.ndarray:
@@ -107,6 +195,35 @@ def rgb2gray(image: np.ndarray) -> np.ndarray:
         return g / 255.0 if g.max() > 1.0 else g
     rgb = image[..., :3].astype(np.float64) / 255.0
     return rgb @ _LUMA
+
+
+def normalize_segments(segments_px: np.ndarray, width: int,
+                       height: int) -> np.ndarray:
+    """Pixel endpoints -> the pipeline's normalized frame: centre origin,
+    +y up, the long axis scaled to [-1, 1] (``evaluation.py:240-249`` of
+    the reference)."""
+    s = max(width, height) / 2.0
+    out = segments_px[:, :4].astype(np.float64).copy()
+    out[:, 0] = (out[:, 0] - width / 2.0) / s
+    out[:, 2] = (out[:, 2] - width / 2.0) / s
+    out[:, 1] = -(out[:, 1] - height / 2.0) / s
+    out[:, 3] = -(out[:, 3] - height / 2.0) / s
+    return out
+
+
+def detect_lsd_lines(image_gray: np.ndarray) -> dict:
+    """Host LSD on a [0, 1]- or [0, 255]-valued grayscale image.
+
+    Returns {'segments': (N, 4) normalized endpoints, 'nfa': (N,)} like the
+    reference's ``detect_lsd_lines`` (``evaluation.py:227-251``)."""
+    from .. import lsd
+
+    img = image_gray.astype(np.float64)
+    if img.size and np.max(img) <= 1.0:
+        img = img * 255.0
+    raw = lsd.detect_line_segments(img)
+    segments = normalize_segments(raw, img.shape[1], img.shape[0])
+    return {"segments": segments, "nfa": raw[:, 6] if raw.size else raw}
 
 
 def normalized_horizon_error(est_horizon: np.ndarray,

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..batching import in_chunks
+
 GRID = 20
 INPUT_SIZE = 500
 
@@ -150,13 +152,23 @@ class VPNet(nn.Module):
                 h = torch.relu(h)
         return torch.sigmoid(h.reshape(-1, GRID, GRID))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, 1, S, S) mean-subtracted float32 -> (B, 20, 20) sigmoid
-        grid; row b of the grid is beta index b."""
+    def forward_unchunked(self, x: torch.Tensor) -> torch.Tensor:
+        """The network on the whole batch at once; cuDNN and cuBLAS then
+        pick their kernels by the batch size, so an image's grid depends
+        on the batch it came in."""
         if self.compute_dtype == torch.float32:
             with tf32_disabled():
                 return self._forward(x)
         return self._forward(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, 1, S, S) mean-subtracted float32 -> (B, 20, 20) sigmoid
+        grid; row b of the grid is beta index b.
+
+        The network runs on fixed chunks of ``batching.default_chunk``
+        images (32 on a GPU), so an image's grid is bit-identical at any
+        batch size and position."""
+        return in_chunks(self.forward_unchunked, [x])
 
 
 def preprocess(sphere_images: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import os
+import sys
 
 import numpy as np
 import torch
@@ -22,12 +23,55 @@ def _repo_root() -> str:
     return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# dense-vs-compact notices already printed in this process
+_notified: set = set()
+
+
+def _notice(msg: str) -> None:
+    """Which artifact wins changes every AUC and timing, so the choice is
+    printed to stderr once per process, whatever the caller's verbosity."""
+    if msg not in _notified:
+        _notified.add(msg)
+        print(msg, file=sys.stderr)
+
+
 def default_weights_path() -> str:
-    return os.path.join(_repo_root(), "assets", "weights_compact.npz")
+    """The versioned factorized artifact ``assets/weights_compact.npz``,
+    unless a dense retrain ``assets/weights.npz`` exists and is newer: then
+    the retrain wins, with a notice (the JAX package's resolution, so both
+    packages load the same weights from one checkout)."""
+    assets = os.path.join(_repo_root(), "assets")
+    dense = os.path.join(assets, "weights.npz")
+    compact = os.path.join(assets, "weights_compact.npz")
+    if os.path.isfile(dense):
+        if not os.path.isfile(compact):
+            return dense
+        if os.path.getmtime(dense) >= os.path.getmtime(compact):
+            _notice(f"weights: using dense retrain {dense} "
+                    f"[{artifact_fingerprint(dense)}] (newer than the "
+                    "versioned compact artifact)")
+            return dense
+        _notice(f"weights: IGNORING stale dense {dense} (older than the "
+                "versioned compact artifact; delete it or retrain to "
+                "use it)")
+    return compact
 
 
 def default_mean_path() -> str:
     return os.path.join(_repo_root(), "assets", "mean.npy")
+
+
+def weights_identity(weights_path: str | None = None) -> str:
+    """Fingerprint of the weights :func:`load_params_and_mean` loads for
+    ``weights_path`` (default resolution included)."""
+    return artifact_fingerprint(weights_path or default_weights_path())
+
+
+def mean_identity(mean_path: str | None = None) -> str:
+    """Fingerprint of the mean image :func:`load_params_and_mean` loads;
+    it shifts the CNN's output as the weights do, so result caches key on
+    it too."""
+    return artifact_fingerprint(mean_path or default_mean_path())
 
 
 @functools.lru_cache(maxsize=32)
@@ -98,9 +142,15 @@ def load_params_and_mean(weights_path: str | None = None,
                          mean_path: str | None = None,
                          device: str | torch.device = "cpu"):
     """-> (params, mean) as tensors on ``device``; the shipped artifacts
-    by default. Raises when a named file does not exist."""
+    by default. Raises when a named file does not exist, and for Caffe
+    artifacts, whose import is not ported yet."""
     weights_path = weights_path or default_weights_path()
     mean_path = mean_path or default_mean_path()
+    for path in (weights_path, mean_path):
+        if path.endswith((".caffemodel", ".binaryproto")):
+            raise NotImplementedError(
+                f"{path}: Caffe artifacts are not ported yet (see "
+                "ROADMAP.md); pass an .npz / .npy file")
     params = params_from_numpy(params_npz_numpy(weights_path), device)
     mean = torch.from_numpy(np.load(mean_path).astype(np.float32)).to(device)
     return params, mean
