@@ -3,7 +3,9 @@
 Builds the CUDA kernels and the host LSD, holds each kernel against its
 plain PyTorch twin on the card (K2 also at the host path's line buckets,
 N = 1024 and 2048), and drives every path of the port, each checked
-against the JAX package's committed outputs:
+against the JAX package's committed outputs. The pipeline and the weights
+are made without a device argument, so the entry points' default (the
+GPU) is what runs:
 
 * the zero-host-round-trip path (image -> horizon) on the four bundled
   scenes, then timed at batch 32, 640x640, where every tile must give its
@@ -20,8 +22,11 @@ against the JAX package's committed outputs:
 Needs one CUDA GPU (sm_90a), nvcc and g++. Exits non-zero, printing no
 result, when there is no GPU or any phase fails. The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before the
-last is the per-kernel JSON record, whose launch counts add up the runs
-of every path (comparison launches excluded).
+last is the per-kernel JSON record: ``launches`` adds up the runs of
+every path (comparison launches excluded), ``launches_per_batch`` is the
+main path's count for its one batch, and ``bound_ms`` is the least time
+the card could take for the timed call's work (bytes over the memory
+rate or operations over the float32 rate, whichever is larger).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -51,6 +57,11 @@ K2_ATOL = 1e-4          # float image; only the f32 sum order differs
 K2_U8_FRAC = 1e-3       # uint8 images: off by <= 1 on <= 0.1% of pixels
 BATCH = 32
 SYN_COUNT, SYN_BATCH, SYN_MAX_FAR = 50, 8, 2
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3, and float32
+# outside the tensor cores, the sheet's only rate for scalar arithmetic,
+# used for K1's integer min/select operations too
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -101,6 +112,87 @@ def k2_diff(got, ref):
             float((du8 > 0).float().mean()))
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, "bytes" or "operations"): the larger of the two times;
+    logs both counts."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  bound: {n_bytes:.4g} bytes ({t_bytes * 1e3:.4f} ms), {n_ops:.4g} "
+        f"operations ({t_ops * 1e3:.4f} ms): {by}")
+    return max(t_bytes, t_ops) * 1e3, by
+
+
+def k2_work(l, mask, size: int, linewidth: float):
+    """(bytes, float operations) of the sphere render on these lines: each
+    input read once and the image written once; 12 operations per masked
+    (line, column) for the curve (two products, a difference, the
+    quotient, atan, the row centre's product and difference, the slope's
+    difference and product, 1 + m^2, rsqrt), 7 per pixel that a line
+    covers (difference, abs, product, coverage, clamp pair, sum) and 3
+    per output pixel (product, exp, difference)."""
+    import torch
+
+    from vanishing_points_2017_tpu_torch.ops.sphere import curve_beta
+
+    b, n = mask.shape
+    cols = torch.arange(size, dtype=torch.float32, device=l.device)
+    alphas = (cols - 0.5 * size + 0.5) * (math.pi / size)
+    cov_c = 0.5 + 0.5 * linewidth
+    covered = 0
+    for c in range(0, n, 64):
+        rc = 0.5 * size - 0.5 - curve_beta(l[:, c:c + 64], alphas) * (
+            size / math.pi)
+        rc = torch.where(torch.isnan(rc), -1e6, rc)
+        m = torch.cat([rc[..., 1:2] - rc[..., :1],
+                       0.5 * (rc[..., 2:] - rc[..., :-2]),
+                       rc[..., -1:] - rc[..., -2:-1]], dim=-1)
+        half = cov_c * torch.sqrt(1.0 + m * m)
+        lo = torch.clamp(torch.floor(rc - half) + 1, min=0)
+        hi = torch.clamp(torch.ceil(rc + half) - 1, max=size - 1)
+        rows = torch.clamp(hi - lo + 1, min=0) * mask[:, c:c + 64, None]
+        covered += int(rows.sum())
+    n_bytes = l.numel() * 4 + mask.numel() + 2 * size * 4 + b * size * size * 4
+    n_ops = 12 * int(mask.sum()) * size + 7 * covered + 3 * b * size * size
+    return n_bytes, n_ops
+
+
+def packed_of(ld, imgs):
+    """K1's input on the main path: the packed edge bit-plane of a batch
+    of grayscale images (``ld`` is the port's ``ops.lines_device``)."""
+    import numpy as np
+
+    _, active, ux, uy = ld.gradient_front(imgs)
+    return ld.pack_edge_masks(active, ux, uy,
+                              float(np.cos(np.radians(ld.TOL_DEG))))
+
+
+def detected_lines(pkg, imgs, n_pad: int):
+    """K2's input on the main path: the device detector's homogeneous
+    lines and their mask, (B, n_pad, 3) and (B, n_pad), contiguous
+    (``pkg`` is the port's package)."""
+    import torch
+
+    with torch.inference_mode():
+        seg, mask = pkg.ops.lines_device.detect_segments_device(
+            imgs, max_segments=n_pad)
+    lines = torch.where(mask[..., None],
+                        pkg.ops.lines.segments_to_homogeneous(seg), 0.0)
+    return lines.contiguous(), mask.contiguous()
+
+
+def bucket_lines(lines, mask, n: int, b: int = 8):
+    """K2's input at a host-path line bucket: ``b`` images of ``n`` real
+    lines each, cycled from the first four images' detected lines."""
+    import torch
+
+    pool = [lines[i][mask[i]] for i in range(4)]
+    reps = n // min(len(p) for p in pool) + 1
+    ln = torch.stack([torch.cat([pool[(i + j) % 4] for j in range(reps)])[:n]
+                      for i in range(b)])
+    return ln.contiguous(), torch.ones(ln.shape[:2], dtype=torch.bool,
+                                       device=ln.device)
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
     import torch
@@ -126,6 +218,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    import vanishing_points_2017_tpu_torch as port
     from vanishing_points_2017_tpu_torch import batching, kernels
     from vanishing_points_2017_tpu_torch.data import io as dio
     from vanishing_points_2017_tpu_torch import lsd
@@ -174,13 +267,8 @@ def main() -> int:
     records = {}
 
     # ---- K1: raster CCL vs its twin, bit-exact at B = 4 and B = 32
-    def packed_of(imgs):
-        _, active, ux, uy = ld.gradient_front(imgs)
-        return ld.pack_edge_masks(active, ux, uy,
-                                  float(np.cos(np.radians(ld.TOL_DEG))))
-
     for imgs in (imgs4, imgs32):
-        packed = packed_of(imgs)
+        packed = packed_of(ld, imgs)
         got = ld.connected_components_cuda(packed, 8)
         ref = ld.connected_components_ref(packed, 8)
         torch.cuda.synchronize()
@@ -189,16 +277,19 @@ def main() -> int:
             f"{n_bad} labels differ")
         if n_bad:
             raise AssertionError(f"K1 not bit-exact at B={imgs.shape[0]}")
-    packed = packed_of(imgs32)
+    packed = packed_of(ld, imgs32)
     k1_ms = cuda_ms(lambda: ld.connected_components_cuda(packed, 8), 10)
     k1_plain = cuda_ms(lambda: ld.connected_components_ref(packed, 8), 1)
-    log(f"K1 time B={BATCH}: kernel {k1_ms:.3f} ms, twin {k1_plain:.3f} ms")
-    records["ccl_raster"] = dict(max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain)
+    # each pixel and half pass: three injection mins, the two scans' mins
+    # and the final min; the plane read once, the labels written once
+    k1_bound, k1_by = bound(2 * packed.numel() * 4, 6 * 8 * packed.numel())
+    log(f"K1 time B={BATCH}: kernel {k1_ms:.3f} ms, twin {k1_plain:.3f} ms, "
+        f"bound {k1_bound:.4f} ms ({k1_by})")
+    records["ccl_raster"] = dict(max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain,
+                                 bound_ms=k1_bound, bound_by=k1_by)
 
     # ---- K2: sphere render of the detected lines vs its twin
-    seg, mask = ld.detect_segments_device(imgs32, max_segments=cfg.n_pad)
-    lines = torch.where(mask[..., None], segments_to_homogeneous(seg), 0.0)
-    lines = lines.contiguous()
+    lines, mask = detected_lines(port, imgs32, cfg.n_pad)
     log(f"K2 input: {tuple(lines.shape)} lines, "
         f"{mask.sum(1).tolist()[:4]} valid in the first scenes")
     worst = 0.0
@@ -214,17 +305,26 @@ def main() -> int:
         worst = max(worst, err)
     k2_ms = cuda_ms(lambda: sphere.sphere_render_cuda(lines, mask, 500), 10)
     k2_plain = cuda_ms(lambda: sphere.sphere_render_ref(lines, mask, 500), 3)
-    log(f"K2 time B={BATCH}: kernel {k2_ms:.3f} ms, twin {k2_plain:.3f} ms")
+    k2_bound, k2_by = bound(*k2_work(lines, mask, 500,
+                                     sphere.DEFAULT_LINEWIDTH_PX))
+    log(f"K2 time B={BATCH}: kernel {k2_ms:.3f} ms, twin {k2_plain:.3f} ms, "
+        f"bound {k2_bound:.4f} ms ({k2_by})")
     records["sphere_render"] = dict(max_abs_err=worst, ms=k2_ms,
-                                    plain_ms=k2_plain)
+                                    plain_ms=k2_plain, bound_ms=k2_bound,
+                                    bound_by=k2_by)
 
-    # ---- end to end on the 4 scenes through both kernels
-    params, mean = load_params_and_mean(device=dev)
+    # ---- end to end on the 4 scenes through both kernels, with the entry
+    # points' default device
+    params, mean = load_params_and_mean()
     log(f"weights {artifact_fingerprint(default_weights_path())}")
-    pipe = Pipeline(params, mean, cfg, device=dev)
+    pipe = Pipeline(params, mean, cfg)
+    if not (pipe.device.type == mean.device.type == "cuda"
+            and params["conv1"]["w"].is_cuda):
+        raise AssertionError("the entry points' default is not the GPU")
     reset(kernels_all)
     out = pipe.process_images(grays)
     torch.cuda.synchronize()
+    per_batch = {k.source: k.launches for k in kernels_all}
     count(kernels_all, total, "main-path", need=kernels_all)
     for key in ("hp1", "hp2", "vp", "cnn_prediction", "counts"):
         if not bool(torch.isfinite(out[key].float()).all()):
@@ -321,18 +421,17 @@ def main() -> int:
 
     # ---- K2 at the host path's line buckets, B = 8: every slot holds a
     # real line (the bundled scenes' detected lines, cycled)
-    pool = [lines[i][mask[i]] for i in range(4)]
     for n in (1024, 2048):
-        ln = torch.stack([torch.cat([pool[(i + j) % 4] for j in range(
-            n // min(len(p) for p in pool) + 1)])[:n] for i in range(8)])
-        mk = torch.ones(ln.shape[:2], dtype=torch.bool, device=dev)
-        got = sphere.sphere_render_cuda(ln.contiguous(), mk, 500)
+        ln, mk = bucket_lines(lines, mask, n)
+        got = sphere.sphere_render_cuda(ln, mk, 500)
         ref_img = sphere.sphere_render_ref(ln, mk, 500)
         err, du8_max, frac = k2_diff(got, ref_img)
         t_k = cuda_ms(lambda: sphere.sphere_render_cuda(ln, mk, 500), 10)
         t_p = cuda_ms(lambda: sphere.sphere_render_ref(ln, mk, 500), 2)
+        t_b, _ = bound(*k2_work(ln, mk, 500, sphere.DEFAULT_LINEWIDTH_PX))
         log(f"K2 B=8 N={n}: max|d| {err:.3g}, uint8 max {du8_max} on "
-            f"{frac:.2e} of pixels; kernel {t_k:.3f} ms, twin {t_p:.3f} ms")
+            f"{frac:.2e} of pixels; kernel {t_k:.3f} ms, twin {t_p:.3f} ms, "
+            f"bound {t_b:.4f} ms")
         if not (err <= K2_ATOL and du8_max <= 1 and frac <= K2_U8_FRAC):
             raise AssertionError(f"K2 disagrees with its twin at N={n}")
         records["sphere_render"]["max_abs_err"] = max(
@@ -373,7 +472,7 @@ def main() -> int:
     # ---- consensus K = 8 on the host path's bundles: member 0 is the
     # untouched population, so it reproduces the single-EM run exactly
     cpipe = Pipeline(params, mean, dataclasses.replace(
-        cfg, horizon_consensus=8), device=dev)
+        cfg, horizon_consensus=8))
     reset(kernels_all)
     cons = cpipe.process_batch(bundles)
     torch.cuda.synchronize()
@@ -420,7 +519,7 @@ def main() -> int:
             if e > HORIZON_TOL:
                 far.append(i)
                 log(f"synthetic {path} image {i}: horizon {e:.4f} from JAX's")
-        log(f"synthetic {path}: AUC {auc:.4f} vs JAX {jax_auc:.4f}; "
+        log(f"synthetic {path}: AUC {auc:.5f} vs JAX {jax_auc:.5f}; "
             f"{len(far)} of {SYN_COUNT} horizons beyond {HORIZON_TOL} of "
             f"JAX's; host ingest {ingest_s / SYN_COUNT * 1e3:.1f} ms/img; "
             f"device stage {n_done / dev_s:.1f} img/s at batch {SYN_BATCH} "
@@ -432,16 +531,23 @@ def main() -> int:
             raise AssertionError(f"synthetic {path}: {len(far)} horizons "
                                  "beyond the gate")
 
+    # no single PyTorch call computes either function: library_ms is null
     kernel_info = [
         dict(name="ccl_raster", route="cuda",
              source="vanishing_points_2017_tpu_torch/csrc/ccl_raster.cu",
              replaces="vanishing_points_2017_tpu/ops/ccl_pallas.py:44",
-             launches=total[ccl_k.source], **records["ccl_raster"]),
+             launches=total[ccl_k.source],
+             launches_per_batch=per_batch[ccl_k.source],
+             library_ms=None, **records["ccl_raster"]),
         dict(name="sphere_render", route="cuda",
              source="vanishing_points_2017_tpu_torch/csrc/sphere_render.cu",
              replaces="vanishing_points_2017_tpu/ops/sphere_pallas.py:53",
-             launches=total[sph_k.source], **records["sphere_render"]),
+             launches=total[sph_k.source],
+             launches_per_batch=per_batch[sph_k.source],
+             library_ms=None, **records["sphere_render"]),
     ]
+    for k in kernel_info:
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
     log(json.dumps({"kernels": kernel_info}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

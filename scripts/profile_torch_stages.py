@@ -38,6 +38,8 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     from vanishing_points_2017_tpu_torch import pipeline as P
     from vanishing_points_2017_tpu_torch.em import em as em_mod
+    from vanishing_points_2017_tpu_torch.em.horizon import \
+        calculate_horizon_and_ortho_vp
     from vanishing_points_2017_tpu_torch.models import cnn as cnn_mod
     from vanishing_points_2017_tpu_torch.ops import lines as lineops
     from vanishing_points_2017_tpu_torch.ops import sphere
@@ -94,7 +96,7 @@ def main() -> None:
             finally:
                 torch.Tensor.__bool__ = orig_bool
             t0 = mark("em", t0)
-            P.calculate_horizon_and_ortho_vp(
+            calculate_horizon_and_ortho_vp(
                 em.vp, em.counts, em.alive, maxbest=cfg.maxbest,
                 theta_vmin=cfg.theta_vmin,
                 pos_gate_ideal_tol=cfg.horizon_pos_gate_tol)

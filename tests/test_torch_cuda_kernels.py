@@ -55,6 +55,32 @@ def test_ccl_kernel_bit_exact(cuda, size, passes):
     assert torch.equal(got, ref)
 
 
+def _plane(kind, b, h, w, seed=0):
+    """A packed edge bit-plane: random bits (any plane must give the
+    twin's labels, border bits included), mostly-set bits, all set, none."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        p = rng.integers(0, 256, (b, h, w))
+    elif kind == "dense":
+        p = np.where(rng.uniform(size=(b, h, w)) < 0.9, 0xFF,
+                     rng.integers(0, 256, (b, h, w)))
+    else:
+        p = np.full((b, h, w), 0xFF if kind == "all" else 0)
+    return torch.from_numpy(p.astype(np.int32))
+
+
+@pytest.mark.parametrize("w", [1, 31, 33, 129, 300, 639, 1024])
+@pytest.mark.parametrize("h", [1, 9])
+@pytest.mark.parametrize("kind", ["random", "dense", "all", "none"])
+def test_ccl_kernel_bit_exact_on_planes(cuda, kind, h, w):
+    """Lane and warp edges (W = 31, 33: a ragged last lane; 129, 300: a
+    ragged last warp), one column, the widest grid, one row, all-active and
+    all-inactive planes."""
+    packed = _plane(kind, 2, h, w).to(cuda)
+    got = ld.connected_components_cuda(packed, 8)
+    assert torch.equal(got, ld.connected_components_ref(packed, 8))
+
+
 def test_sphere_kernel_matches_twin(cuda):
     rng = np.random.default_rng(1)
     l = torch.from_numpy(rng.normal(size=(2, 67, 3)).astype(np.float32))
@@ -67,6 +93,58 @@ def test_sphere_kernel_matches_twin(cuda):
     ref = sphere.sphere_render_ref(l.to(cuda), mask.to(cuda), size=150)
     assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _k2_gate(got, ref):
+    """chip_smoke.py's K2 gates: within 1e-4, uint8 off by <= 1 on <= 0.1%
+    of pixels."""
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 1e-4
+    du8 = (torch.floor(got * 255) - torch.floor(ref * 255)).abs()
+    assert float(du8.max()) <= 1 and float((du8 > 0).float().mean()) <= 1e-3
+
+
+def test_sphere_kernel_edge_cases(cuda):
+    """Steep curves whose band is the whole column (l0 >> l1, l2), rows
+    centred off the canvas (0/0 -> NaN -> -1e6), N = 0 and a batch whose
+    lines are all masked (a black image)."""
+    rng = np.random.default_rng(2)
+    l = rng.normal(size=(3, 40, 3)).astype(np.float32)
+    l[0, :10] = [1.0, 1e-6, 0.0]        # near-vertical curves
+    l[0, 10:20, 1] *= 1e-4              # steep
+    l[0, 20:25] = 0.0                   # 0/0 at every column
+    l[0, 25:30, 1] = 0.0                # l1 = 0: atan(+-inf)
+    mask = np.ones((3, 40), bool)
+    mask[1] = False                     # every line masked
+    mask[2, ::3] = False
+    l, mask = torch.from_numpy(l).to(cuda), torch.from_numpy(mask).to(cuda)
+    got = sphere.sphere_render_cuda(l, mask, 120)
+    _k2_gate(got, sphere.sphere_render_ref(l, mask, 120))
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    empty = sphere.sphere_render_cuda(l[:, :0].contiguous(),
+                                      mask[:, :0].contiguous(), 120)
+    assert torch.equal(empty, torch.zeros_like(empty))
+
+
+def test_sphere_kernel_at_the_largest_bucket(cuda):
+    """S = 500, N = 2048 (the host path's largest line bucket)."""
+    rng = np.random.default_rng(3)
+    l = torch.from_numpy(rng.normal(size=(2, 2048, 3)).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=(2, 2048)) < 0.95).to(cuda)
+    _k2_gate(sphere.sphere_render_cuda(l, mask, 500),
+             sphere.sphere_render_ref(l, mask, 500))
+
+
+def test_sphere_kernel_is_deterministic(cuda):
+    """Two launches give the same bits: each pixel sums its lines in index
+    order, with no atomics."""
+    rng = np.random.default_rng(4)
+    l = torch.from_numpy(rng.normal(size=(2, 300, 3)).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=(2, 300)) < 0.9).to(cuda)
+    first = sphere.sphere_render_cuda(l, mask, 500)
+    assert torch.equal(first, sphere.sphere_render_cuda(l, mask, 500))
 
 
 def test_wrappers_reject_bad_inputs(cuda):

@@ -54,7 +54,8 @@ def setup():
     jp = {k: {kk: jnp.asarray(vv) for kk, vv in d.items()}
           for k, d in npp.items()}
     return (imgs, jpipe.Pipeline(jp, mean, JCFG),
-            tpipe.Pipeline(params_from_numpy(npp), mean, TCFG))
+            tpipe.Pipeline(params_from_numpy(npp), mean, TCFG,
+                           device="cpu"))
 
 
 def _gates(hp_t, hp_j, i, out_t, out_j, u8_frac=1e-3):

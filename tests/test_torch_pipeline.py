@@ -109,7 +109,7 @@ def test_device_pipeline_full_matches_jax(setup):
           for k, d in npp.items()}
     out_j = jpipe.device_pipeline_full(jnp.asarray(imgs), jp,
                                        jnp.asarray(mean), JCFG)
-    pipe = tpipe.Pipeline(params_from_numpy(npp), mean, TCFG)
+    pipe = tpipe.Pipeline(params_from_numpy(npp), mean, TCFG, device="cpu")
     out_t = pipe.process_images(list(imgs))
     assert int(out_t["segment_mask"][0].sum()) > 10
     # detected endpoints agree to ~1e-5 (test_torch_detector.py), which
@@ -123,8 +123,9 @@ def test_full_size_scenes_match_committed_jax_reference():
     bundled 640x640 scenes: each horizon within 0.02 normalized error of
     the committed JAX outputs (the gate chip_smoke.py applies on the GPU)
     and within 0.02 of the ground truth."""
-    params, mean = load_params_and_mean()
-    pipe = tpipe.Pipeline(params, mean, tpipe.PipelineConfig())
+    params, mean = load_params_and_mean(device="cpu")
+    pipe = tpipe.Pipeline(params, mean, tpipe.PipelineConfig(),
+                          device="cpu")
     paths = [os.path.join(ROOT, "assets", "examples", f"scene_{i}.png")
              for i in range(4)]
     out = pipe.process_images([pipe.ingest_image(p)["gray"] for p in paths])

@@ -13,6 +13,7 @@ from PIL import Image
 from vanishing_points_2017_tpu import weights as jweights
 from vanishing_points_2017_tpu.data import datasets as jdatasets
 from vanishing_points_2017_tpu.data import io as jio
+from vanishing_points_2017_tpu_torch import pipeline as tpipe
 from vanishing_points_2017_tpu_torch import weights as tweights
 from vanishing_points_2017_tpu_torch.data import io as tio
 
@@ -45,7 +46,7 @@ def test_params_from_numpy_round_trip():
                     got = got.transpose(2, 3, 1, 0)  # OIHW -> HWIO
                 np.testing.assert_array_equal(got, v)
     assert "u" in tp["fc6"] and "v" in tp["fc7"]
-    params, mean = tweights.load_params_and_mean()
+    params, mean = tweights.load_params_and_mean(device="cpu")
     assert params["conv2"]["w"].shape == (256, 48, 5, 5)
     assert mean.shape == (500, 500) and mean.dtype == torch.float32
 
@@ -117,3 +118,35 @@ def test_caffe_artifacts_are_refused():
                {"mean_path": "m.binaryproto"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tweights.load_params_and_mean(**kw)
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "weights"])
+def test_entry_points_default_to_the_gpu(entry):
+    """Without a device argument both entry points run on the GPU: where
+    there is one they land on it, where there is none they raise and
+    nothing falls back to the CPU."""
+    params, mean = tweights.load_params_and_mean(device="cpu")
+
+    def call():
+        if entry == "pipeline":
+            return tpipe.Pipeline(params, mean).mean
+        return tweights.load_params_and_mean()[1]
+
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()
+
+
+@pytest.mark.parametrize("kw,error", [
+    ({"weights_path": "w.caffemodel"}, NotImplementedError),
+    ({"mean_path": "m.binaryproto"}, NotImplementedError),
+    ({"weights_path": "missing.npz"}, FileNotFoundError),
+    ({"mean_path": "missing.npy"}, FileNotFoundError)])
+def test_artifact_errors_precede_the_device_check(monkeypatch, kw, error):
+    """A Caffe artifact or a missing file is reported as such, also on a
+    machine without a GPU, where the default device would raise too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(error):
+        tweights.load_params_and_mean(**kw)

@@ -45,8 +45,7 @@ NEIGHBOUR_BITS = {(-1, -1): 0, (-1, 0): 1, (-1, 1): 2, (0, -1): 3,
 
 CCL_KERNEL = kernels.CudaKernel(
     "ccl_raster.cu", "ccl_raster_launch",
-    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
-    + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _shift(a: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
@@ -184,14 +183,17 @@ def connected_components_cuda(packed: torch.Tensor,
     kernels.require(packed, "packed", torch.int32, (b, h, w), dev)
     if not 1 <= w <= 1024:
         raise ValueError(f"connected_components_cuda: width {w} outside "
-                         "[1, 1024] (one thread per column)")
+                         "[1, 1024] (128 threads per image, at most 8 "
+                         "columns each)")
     if h * w >= I32_MAX:
         raise ValueError("connected_components_cuda: image too large")
     labels = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     if b == 0 or h == 0:
         return labels.reshape(b, h * w)
-    CCL_KERNEL.launch(kernels.ptr(packed), kernels.ptr(labels), b, h, w,
-                      _half_passes(passes), kernels.stream_of(packed))
+    scratch = torch.empty_like(labels)
+    CCL_KERNEL.launch(kernels.ptr(packed), kernels.ptr(labels),
+                      kernels.ptr(scratch), b, h, w, _half_passes(passes),
+                      kernels.stream_of(packed))
     return labels.reshape(b, h * w)
 
 

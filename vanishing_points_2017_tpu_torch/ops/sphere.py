@@ -29,7 +29,7 @@ LINE_CHUNK = 8
 
 SPHERE_KERNEL = kernels.CudaKernel(
     "sphere_render.cu", "sphere_render_launch",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
     + [ctypes.c_void_p],
     extra_flags=("-fmad=false",))
 
@@ -101,8 +101,6 @@ def sphere_render_cuda(l: torch.Tensor, lmask: torch.Tensor, size: int = 500,
     kernels.require(l, "l", torch.float32, (b, n, 3), dev)
     kernels.require(lmask, "lmask", torch.bool, (b, n), dev)
     sa, ca = _column_tables(size, dev)
-    rc_tab = torch.empty((b, n, size), dtype=torch.float32, device=dev)
-    inv_tab = torch.empty_like(rc_tab)
     out = torch.empty((b, size, size), dtype=torch.float32, device=dev)
     if b == 0:
         return out
@@ -111,9 +109,8 @@ def sphere_render_cuda(l: torch.Tensor, lmask: torch.Tensor, size: int = 500,
     f32 = ctypes.c_float  # rounds to nearest, as torch's float32 cast does
     SPHERE_KERNEL.launch(
         kernels.ptr(l), kernels.ptr(lmask), kernels.ptr(sa), kernels.ptr(ca),
-        kernels.ptr(rc_tab), kernels.ptr(inv_tab), kernels.ptr(out),
-        b, n, size, f32(c0), f32(c1), f32(0.5 + 0.5 * linewidth),
-        f32(_log1m(alpha)), kernels.stream_of(l))
+        kernels.ptr(out), b, n, size, f32(c0), f32(c1),
+        f32(0.5 + 0.5 * linewidth), f32(_log1m(alpha)), kernels.stream_of(l))
     return out
 
 

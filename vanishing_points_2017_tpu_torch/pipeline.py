@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .data import io as dio
+from .device import require_device
 from .em import EMConfig
 from .em.consensus import consensus_em_horizon, em_and_horizon
 from .models import cnn as cnn_mod
@@ -32,16 +33,6 @@ from .weights import params_from_numpy
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 BUCKETS = (512, 1024, 2048)
 _log = logging.getLogger(__name__)
-
-
-def require_device(name: str | torch.device) -> torch.device:
-    """The torch device ``name``; raises when it is a CUDA device and no
-    GPU is present (nothing falls back to the CPU)."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {name!r}: no CUDA GPU is available "
-                           "(--device cpu runs on the CPU)")
-    return dev
 
 
 def select_bucket(n: int, buckets: tuple = BUCKETS) -> int:
@@ -203,14 +194,15 @@ def device_pipeline_full(images: torch.Tensor, model: cnn_mod.VPNet,
 class Pipeline:
     """Host orchestration around the device program. ``params``: this
     port's layout (``weights.load_params_and_mean``); None = random init
-    from ``rng_seed``."""
+    from ``rng_seed``. Runs on the GPU unless ``device`` says otherwise,
+    and raises when there is none."""
 
     def __init__(self, params: dict | None = None,
                  mean: np.ndarray | torch.Tensor | None = None,
                  cfg: PipelineConfig = PipelineConfig(), rng_seed: int = 0,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = require_device(device)
         if params is None:
             params = params_from_numpy(
                 cnn_mod.init_params(rng_seed, input_size=cfg.sphere_size))

@@ -18,6 +18,8 @@ import sys
 import numpy as np
 import torch
 
+from .device import require_device
+
 
 def _repo_root() -> str:
     return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -140,10 +142,12 @@ def params_from_numpy(params, device: str | torch.device = "cpu") -> dict:
 
 def load_params_and_mean(weights_path: str | None = None,
                          mean_path: str | None = None,
-                         device: str | torch.device = "cpu"):
-    """-> (params, mean) as tensors on ``device``; the shipped artifacts
-    by default. Raises when a named file does not exist, and for Caffe
-    artifacts, whose import is not ported yet."""
+                         device: str | torch.device = "cuda"):
+    """-> (params, mean) as tensors on ``device`` (the GPU unless the
+    caller names another); the shipped artifacts by default. Raises for
+    Caffe artifacts, whose import is not ported yet, then when a named
+    file does not exist, then when ``device`` is a GPU and none is
+    present."""
     weights_path = weights_path or default_weights_path()
     mean_path = mean_path or default_mean_path()
     for path in (weights_path, mean_path):
@@ -151,6 +155,10 @@ def load_params_and_mean(weights_path: str | None = None,
             raise NotImplementedError(
                 f"{path}: Caffe artifacts are not ported yet (see "
                 "ROADMAP.md); pass an .npz / .npy file")
+    for path in (weights_path, mean_path):
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"{path}: no such file")
+    device = require_device(device)
     params = params_from_numpy(params_npz_numpy(weights_path), device)
     mean = torch.from_numpy(np.load(mean_path).astype(np.float32)).to(device)
     return params, mean
