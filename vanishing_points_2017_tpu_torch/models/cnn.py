@@ -12,7 +12,9 @@ native layout here), factorized fc6/fc7 (``x @ u @ v``).
 ``compute_dtype`` follows the JAX ``_conv``: inputs and weights are cast
 to it for every conv and fc product, the product comes back in that dtype,
 and the bias is added in float32; LRN and pooling run in float32. In
-float32 mode TF32 is pinned off for cuDNN and cuBLAS.
+float32 mode TF32 is pinned off for cuDNN and cuBLAS. The weights are
+``nn.Parameter``s: serving calls the module (fixed chunks, no autograd),
+training calls :meth:`VPNet.train_logits` (``models/train.py``).
 """
 
 from __future__ import annotations
@@ -116,7 +118,9 @@ def tf32_disabled():
 
 class VPNet(nn.Module):
     """The VP-grid CNN. ``params``: this port's layout (see
-    ``weights.params_from_numpy``), fc layers either ``w`` or ``u``/``v``."""
+    ``weights.params_from_numpy``), fc layers either ``w`` or ``u``/``v``;
+    they become the module's float32 ``nn.Parameter``s (sharing storage
+    with ``params`` where those already are contiguous float32)."""
 
     def __init__(self, params: dict, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -125,10 +129,17 @@ class VPNet(nn.Module):
         for name, *_ in CONV_SPECS + FC_SPECS:
             layer = nn.Module()
             for k, v in params[name].items():
-                layer.register_buffer(k, v.to(torch.float32).contiguous())
+                layer.register_parameter(
+                    k, nn.Parameter(v.to(torch.float32).contiguous()))
             self.layers[name] = layer
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def params(self) -> dict:
+        """The weights as ``{layer: {key: nn.Parameter}}``, this port's
+        layout (what ``weights.params_to_npz`` writes)."""
+        return {name: dict(layer.named_parameters())
+                for name, layer in self.layers.items()}
+
+    def _logits(self, x: torch.Tensor, keep=None) -> torch.Tensor:
         cd = self.compute_dtype
         h = x
         for name, _o, _k, stride, pad, groups, _b, _s in CONV_SPECS:
@@ -140,7 +151,7 @@ class VPNet(nn.Module):
                 h = caffe_max_pool(lrn_across_channels(h))
         h = caffe_max_pool(h)
         h = h.reshape(h.shape[0], -1)  # NCHW flatten = Caffe's order
-        for name, *_ in FC_SPECS:
+        for i, (name, *_) in enumerate(FC_SPECS):
             p = self.layers[name]
             hc = h.to(cd)
             if hasattr(p, "u"):
@@ -150,20 +161,37 @@ class VPNet(nn.Module):
             h = y.to(torch.float32) + p.b
             if name != "fc8_20x20":
                 h = torch.relu(h)
-        return torch.sigmoid(h.reshape(-1, GRID, GRID))
+                if keep is not None:  # dropout, p = 0.5 (JAX cnn.py:180)
+                    h = torch.where(keep[i], h / 0.5, 0.0)
+        return h.reshape(-1, GRID, GRID)
+
+    def numerics(self):
+        """The context the network's products run in, the backward pass's
+        included: TF32 off in float32 mode, the defaults in bfloat16."""
+        if self.compute_dtype == torch.float32:
+            return tf32_disabled()
+        return contextlib.nullcontext()
+
+    def train_logits(self, x: torch.Tensor, keep=None) -> torch.Tensor:
+        """The training forward (JAX ``forward(train=True, logits=True)``):
+        fc8 logits (B, 20, 20) of the whole batch, unchunked, with autograd;
+        the caller runs it and its backward under :meth:`numerics`.
+        ``keep``: the dropout keep masks after fc6 and fc7, bool (B, width)
+        each, kept units scaled by 2; ``None`` applies no dropout."""
+        return self._logits(x, keep)
 
     def forward_unchunked(self, x: torch.Tensor) -> torch.Tensor:
         """The network on the whole batch at once; cuDNN and cuBLAS then
         pick their kernels by the batch size, so an image's grid depends
         on the batch it came in."""
-        if self.compute_dtype == torch.float32:
-            with tf32_disabled():
-                return self._forward(x)
-        return self._forward(x)
+        with self.numerics():
+            return torch.sigmoid(self._logits(x))
 
+    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, 1, S, S) mean-subtracted float32 -> (B, 20, 20) sigmoid
-        grid; row b of the grid is beta index b.
+        grid; row b of the grid is beta index b. Serving only: no autograd
+        graph is recorded.
 
         The network runs on fixed chunks of ``batching.default_chunk``
         images (32 on a GPU), so an image's grid is bit-identical at any

@@ -1,7 +1,9 @@
 """Synthetic Manhattan scenes (``models/synth.py`` of the JAX package).
 
 A random camera rotation gives three orthogonal vanishing points; line
-segments pass through them (up to noise), with outlier clutter. Host-side
+segments pass through them (up to noise), with outlier clutter; the
+training scenes add a detector's artefacts, and ``vp_grid_label`` gives
+the CNN's 20 x 20 target. Host-side
 numpy on the caller's ``np.random.Generator``, drawing in the JAX
 package's order, so a seed gives the identical scene in both packages.
 
@@ -109,3 +111,73 @@ def make_scene(rng: np.random.Generator, lines_per_vp: int = 40,
                  lines=segments_to_lines(seg).astype(np.float32),
                  vps=vps.astype(np.float32), vp_assoc=assoc,
                  horizon=horizon.astype(np.float32))
+
+
+def make_training_scene(rng: np.random.Generator) -> Scene:
+    """Domain-randomized scene for CNN training: variable line counts and
+    lengths, fragmented long segments, near-duplicate detections, dropped
+    lines and endpoint noise up to ~1.5 px at 640, so the CNN sees a line
+    detector's statistics rather than idealized segments."""
+    scene = make_scene(rng,
+                       lines_per_vp=int(rng.integers(12, 60)),
+                       outliers=int(rng.integers(0, 30)),
+                       noise=float(rng.uniform(0.001, 0.005)))
+    seg = scene.segments.copy()
+    assoc = scene.vp_assoc.copy()
+
+    # global length scaling (detectors often return shorter fragments)
+    scale = float(rng.uniform(0.5, 1.1))
+    mids = 0.5 * (seg[:, 0:2] + seg[:, 2:4])
+    seg[:, 0:2] = mids + (seg[:, 0:2] - mids) * scale
+    seg[:, 2:4] = mids + (seg[:, 2:4] - mids) * scale
+
+    # fragmentation: split some long segments in two with a small gap
+    frag = rng.random(seg.shape[0]) < rng.uniform(0.0, 0.4)
+    extra_s, extra_a = [], []
+    for i in np.flatnonzero(frag):
+        p1, p2 = seg[i, 0:2].copy(), seg[i, 2:4].copy()
+        cut = rng.uniform(0.35, 0.65)
+        gap = rng.uniform(0.01, 0.05)
+        m = p1 + cut * (p2 - p1)
+        d = (p2 - p1) / max(np.linalg.norm(p2 - p1), 1e-6)
+        seg[i, 2:4] = m - 0.5 * gap * d
+        extra_s.append(np.concatenate([m + 0.5 * gap * d, p2]))
+        extra_a.append(assoc[i])
+
+    # near-duplicates (parallel edge pairs ~1-2 px apart)
+    dup = rng.random(seg.shape[0]) < rng.uniform(0.0, 0.3)
+    for i in np.flatnonzero(dup):
+        off = rng.normal(scale=0.004, size=2)
+        extra_s.append(np.concatenate([seg[i, 0:2] + off, seg[i, 2:4] + off]))
+        extra_a.append(assoc[i])
+
+    if extra_s:
+        seg = np.concatenate([seg, np.stack(extra_s)], axis=0)
+        assoc = np.concatenate([assoc, np.array(extra_a)])
+
+    # random dropout, unless it would leave fewer than 8 lines
+    keep = rng.random(seg.shape[0]) >= rng.uniform(0.0, 0.35)
+    if keep.sum() >= 8:
+        seg, assoc = seg[keep], assoc[keep]
+
+    return Scene(segments=seg.astype(np.float32),
+                 lines=segments_to_lines(seg).astype(np.float32),
+                 vps=scene.vps, vp_assoc=assoc, horizon=scene.horizon)
+
+
+def vp_grid_label(vps: np.ndarray, grid: int = 20,
+                  sigma_cells: float = 0.7) -> np.ndarray:
+    """(grid, grid) training target: Gaussian bumps of peak 1 at the VPs'
+    angle positions; cell (b, a) covers (alpha_a, beta_b)."""
+    alphas = np.arcsin(np.clip(vps[:, 0] / np.cos(np.arcsin(
+        np.clip(vps[:, 1], -1, 1))), -1, 1))
+    betas = np.arcsin(np.clip(vps[:, 1], -1, 1))
+    # fractional grid coordinates
+    ga = (alphas / np.pi + 0.5) * grid - 0.5
+    gb = (betas / np.pi + 0.5) * grid - 0.5
+    bb, aa = np.meshgrid(np.arange(grid), np.arange(grid), indexing="ij")
+    label = np.zeros((grid, grid), np.float32)
+    for k in range(vps.shape[0]):
+        d2 = (aa - ga[k]) ** 2 + (bb - gb[k]) ** 2
+        label = np.maximum(label, np.exp(-0.5 * d2 / sigma_cells ** 2))
+    return label

@@ -5,7 +5,9 @@ artifact is ``assets/weights_compact.npz`` (float16 storage, conv weights
 in HWIO, fc6/fc7 factorized as rank-256 ``u``/``v`` pairs) plus
 ``assets/mean.npy``. :func:`params_from_numpy` turns the JAX package's
 parameter layout into this port's (OIHW conv weights, ``(in, out)`` fc
-matrices kept as they are), so either package's checkpoints load here.
+matrices kept as they are), so either package's checkpoints load here;
+:func:`params_to_npz` writes this port's parameters back in the JAX
+package's layout and file format, so its checkpoints load there too.
 """
 
 from __future__ import annotations
@@ -96,20 +98,65 @@ def artifact_fingerprint(path: str | None) -> str:
                                st.st_mtime_ns)
 
 
-def params_npz_numpy(path: str) -> dict:
+def params_npz_numpy(path: str, with_step: bool = False):
     """npz checkpoint -> nested ``{layer: {key: float32 ndarray}}`` in the
-    JAX package's layout (storage may be float16)."""
+    JAX package's layout (storage may be float16); with ``with_step``,
+    also the ``__step__`` it was written at (0 when it has none)."""
     params: dict = {}
+    step = 0
     with np.load(path) as z:
         for key in z.files:
             if key == "__step__":
+                step = int(z[key])
                 continue
             layer, k = key.split("/")
             v = z[key]
             if v.dtype.kind == "f":
                 v = v.astype(np.float32)
             params.setdefault(layer, {})[k] = v
-    return params
+    return (params, step) if with_step else params
+
+
+def params_to_numpy(params: dict) -> dict:
+    """This port's parameters -> the JAX package's layout as float32 numpy
+    (the inverse of :func:`params_from_numpy`): conv ``w`` OIHW -> HWIO,
+    fc ``w``/``u``/``v`` and biases as they are."""
+    out: dict = {}
+    for layer, d in params.items():
+        out[layer] = {}
+        for k, v in d.items():
+            a = v.detach().to("cpu", torch.float32).numpy()
+            if k == "w" and a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+            out[layer][k] = np.ascontiguousarray(a)
+    return out
+
+
+def params_to_npz(params: dict, path: str, step: int | None = None,
+                  dtype=None) -> None:
+    """Write a checkpoint the JAX package's ``params_from_npz`` reads:
+    keys ``layer/key`` in its layout, plus ``__step__`` when ``step`` is
+    given. ``dtype=np.float16`` halves the file (loading upcasts). Stored
+    uncompressed: trained weights do not compress, and zlib on one core
+    would stall training for minutes per snapshot."""
+    flat = {}
+    for layer, d in params_to_numpy(params).items():
+        for k, v in d.items():
+            flat[f"{layer}/{k}"] = v if dtype is None else v.astype(dtype)
+    if step is not None:
+        flat["__step__"] = np.asarray(step)
+    np.savez(path, **flat)
+
+
+def params_from_npz(path: str, with_step: bool = False,
+                    device: str | torch.device = "cuda"):
+    """Checkpoint of either package -> this port's parameters on
+    ``device`` (the GPU unless the caller names another), and with
+    ``with_step`` the step it was written at."""
+    device = require_device(device)
+    params, step = params_npz_numpy(path, with_step=True)
+    params = params_from_numpy(params, device)
+    return (params, step) if with_step else params
 
 
 def params_from_numpy(params, device: str | torch.device = "cpu") -> dict:
