@@ -18,6 +18,9 @@ where JAX is not installed:
   norm of the update after the two steps (new minus shipped, in the JAX
   layout) and its first 4096 values.
 
+Its helpers ``keep_masks`` and ``jax_update`` also serve the port's CPU
+tests (``tests/test_torch_train*.py``), which load this file.
+
     python scripts/make_jax_reference_train.py [--out PATH]
 """
 
@@ -42,8 +45,30 @@ def keep_masks(key, batch: int, widths) -> list:
     out = []
     for w in widths:
         key, sub = jax.random.split(key)
-        out.append(np.asarray(jax.random.bernoulli(sub, 0.5, (batch, w))))
+        out.append(np.array(jax.random.bernoulli(sub, 0.5, (batch, w))))
     return out
+
+
+def jax_update(params, grads, momentum, step: int):
+    """JAX's Caffe update (``models/train.py:83-91``) with the grads given:
+    (new params, new momentum)."""
+    import jax
+    import jax.numpy as jnp
+
+    from vanishing_points_2017_tpu.models import train
+
+    lr = train.learning_rate(jnp.asarray(step, jnp.int32))
+
+    def update(path, p, g, v):
+        local_lr, local_wd = ((2.0 * lr, 0.0) if train._is_bias(path)
+                              else (lr, train.WEIGHT_DECAY))
+        v = train.MOMENTUM * v - local_lr * (g + local_wd * p)
+        return p + v, v
+
+    flat = jax.tree_util.tree_map_with_path(update, params, grads, momentum)
+    leaf = lambda t: isinstance(t, tuple)
+    return (jax.tree.map(lambda t: t[0], flat, is_leaf=leaf),
+            jax.tree.map(lambda t: t[1], flat, is_leaf=leaf))
 
 
 def f32_losses(params, x, labels, keys) -> list:
@@ -64,19 +89,7 @@ def f32_losses(params, x, labels, keys) -> list:
                 logits=True), labels)
 
         loss, grads = jax.value_and_grad(loss_fn)(params)
-        lr = train.learning_rate(jnp.asarray(step))
-
-        def update(path, p, g, v):
-            local_lr, local_wd = ((2.0 * lr, 0.0) if train._is_bias(path)
-                                  else (lr, train.WEIGHT_DECAY))
-            v = train.MOMENTUM * v - local_lr * (g + local_wd * p)
-            return p + v, v
-
-        flat = jax.tree_util.tree_map_with_path(update, params, grads,
-                                                momentum)
-        leaf = lambda t: isinstance(t, tuple)
-        params = jax.tree.map(lambda t: t[0], flat, is_leaf=leaf)
-        momentum = jax.tree.map(lambda t: t[1], flat, is_leaf=leaf)
+        params, momentum = jax_update(params, grads, momentum, step)
         losses.append(float(loss))
     return losses
 

@@ -2,6 +2,9 @@
 scenes and labels, the solver's pure functions, Caffe's SGD update,
 the factorization, checkpoints in both directions and ``make_batch``."""
 
+import importlib.util
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,14 @@ from vanishing_points_2017_tpu_torch.models import cnn as tcnn
 from vanishing_points_2017_tpu_torch.models import factorize as tfactorize
 from vanishing_points_2017_tpu_torch.models import synth as tsynth
 from vanishing_points_2017_tpu_torch.models import train as ttrain
+
+# JAX's Caffe update with the grads given: the reference script's helper
+_spec = importlib.util.spec_from_file_location(
+    "make_jax_reference_train",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "scripts", "make_jax_reference_train.py"))
+jref = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(jref)
 
 
 @pytest.mark.parametrize("seed", range(20))
@@ -52,24 +63,6 @@ def test_sigmoid_xent_matches_jax():
     np.testing.assert_allclose(got, ref, rtol=1e-6)
 
 
-def _jax_update(params, grads, momentum, step):
-    """JAX's Caffe update (``models/train.py:83-91``) with the grads given."""
-    lr = jtrain.learning_rate(jnp.asarray(step, jnp.int32))
-
-    def update(path, p, g, v):
-        if jtrain._is_bias(path):
-            local_lr, local_wd = 2.0 * lr, 0.0
-        else:
-            local_lr, local_wd = lr, jtrain.WEIGHT_DECAY
-        v_new = jtrain.MOMENTUM * v - local_lr * (g + local_wd * p)
-        return p + v_new, v_new
-
-    flat = jax.tree_util.tree_map_with_path(update, params, grads, momentum)
-    pick = lambda i: jax.tree.map(lambda t: np.asarray(t[i]), flat,
-                                  is_leaf=lambda t: isinstance(t, tuple))
-    return pick(0), pick(1)
-
-
 @pytest.mark.parametrize("step", [0, 199_999, 200_000])
 def test_sgd_update_matches_jax(step):
     """Caffe's update alone, from nonzero momentum, on both sides of the
@@ -85,7 +78,7 @@ def test_sgd_update_matches_jax(step):
                       "b": f32(16, scale=0.1)}}
     grads = jax.tree.map(lambda p: f32(*p.shape), params)
     momentum = jax.tree.map(lambda p: f32(*p.shape, scale=1e-3), params)
-    ref_p, ref_v = _jax_update(params, grads, momentum, step)
+    ref_p, ref_v = jref.jax_update(params, grads, momentum, step)
 
     tp, tg, tv = (tweights.params_from_numpy(t)
                   for t in (params, grads, momentum))

@@ -50,6 +50,8 @@ def test_train_cnn_resume_snapshots_and_mean(tmp_path, capsys):
     assert "estimating mean image" in log
     assert "step 1  loss" in log and "step 2  loss" in log
     assert log.count("snapshot ->") == 2
+    # the last line counts K2's launches: none here, the twin renders
+    assert log.splitlines()[-1] == "done at step 2; sphere kernel launches: 0"
     m = np.load(mean)
     assert m.shape == (500, 500) and m.dtype == np.float32
     assert 0 < m.max() <= 255
@@ -61,6 +63,7 @@ def test_train_cnn_resume_snapshots_and_mean(tmp_path, capsys):
     log = capsys.readouterr().out
     assert "estimating" not in log and "step 2  loss" not in log
     assert "step 3  loss" in log and "lr 1.00e-04" in log
+    assert log.splitlines()[-1] == "done at step 3; sphere kernel launches: 0"
     assert jweights.params_from_npz(str(out), with_step=True)[1] == 3
     assert _assets_mtimes() == before
 
@@ -76,7 +79,9 @@ def test_compress_weights_factorizes_and_fine_tunes(tmp_path, capsys):
         "--weights", str(dense), "--out", str(out), "--rank6", "8",
         "--rank7", "8", "--steps", "2", "--batch", "2",
         "--device", "cpu"]) == 0
-    assert f"wrote {out}" in capsys.readouterr().out
+    last = capsys.readouterr().out.splitlines()[-1]
+    assert last.startswith(f"wrote {out}")
+    assert last.endswith("; sphere kernel launches: 0")
     with np.load(out) as z:
         assert z["fc6/u"].shape == (57600, 8) and z["fc7/v"].shape == (8, 32)
         assert z["conv1/w"].dtype == np.float16

@@ -2,6 +2,9 @@
 package: the same numpy inputs and, where dropout is on, JAX's own keep
 masks replayed into the port."""
 
+import importlib.util
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -14,21 +17,16 @@ from vanishing_points_2017_tpu.models import train as jtrain
 from vanishing_points_2017_tpu_torch import weights as tweights
 from vanishing_points_2017_tpu_torch.models import cnn as tcnn
 from vanishing_points_2017_tpu_torch.models import train as ttrain
+from chip_smoke import cosine
 
 
-def keep_masks(key, batch, widths):
-    """The keep masks JAX's ``cnn.forward(train=True)`` draws from ``key``
-    (the splits of ``cnn.py:181-182``)."""
-    out = []
-    for w in widths:
-        key, sub = jax.random.split(key)
-        out.append(np.array(jax.random.bernoulli(sub, 0.5, (batch, w))))
-    return out
-
-
-def cosine(a, b):
-    a, b = np.ravel(a).astype(np.float64), np.ravel(b).astype(np.float64)
-    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+# JAX's keep masks of a key: the reference script's helper
+_spec = importlib.util.spec_from_file_location(
+    "make_jax_reference_train",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "scripts", "make_jax_reference_train.py"))
+jref = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(jref)
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +55,7 @@ def _port_loss_grads(params, x, y, dtype, keep=None):
     p = net.params()
     names = [(n, k) for n, d in p.items() for k in d]
     with net.numerics():
-        logits = net.train_logits(
+        logits = net.logits(
             torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(),
             None if keep is None else [torch.from_numpy(k) for k in keep])
         loss = ttrain.sigmoid_xent(logits, torch.from_numpy(y))
@@ -94,7 +92,7 @@ def test_grads_bf16_with_jax_dropout_match_jax(small):
     key = jax.random.PRNGKey(5)
     ref_loss, ref = _jax_loss_grads(params, x, y, jnp.bfloat16, key)
     loss, got = _port_loss_grads(params, x, y, torch.bfloat16,
-                                 keep_masks(key, 2, (64, 64)))
+                                 jref.keep_masks(key, 2, (64, 64)))
     np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
     for layer, d in ref.items():
         for k, g in d.items():
@@ -127,7 +125,7 @@ def test_full_width_compact_train_step_matches_jax():
         key = jax.random.fold_in(jax.random.PRNGKey(1), step)
         jstate, ref_loss = jtrain.train_step(jstate, jnp.asarray(x),
                                              jnp.asarray(y), key)
-        keep = [torch.from_numpy(k) for k in keep_masks(key, 2, (4096, 4096))]
+        keep = [torch.from_numpy(k) for k in jref.keep_masks(key, 2, (4096, 4096))]
         loss = ttrain.train_step(tstate, xt, torch.from_numpy(y), keep=keep)
         np.testing.assert_allclose(float(loss), float(ref_loss), rtol=2e-2)
     assert tstate.step == 2

@@ -5,7 +5,8 @@ Factorizes fc6/fc7 with a truncated randomized SVD on the host
 (``models/factorize.py``), fine-tunes the factorized network with Caffe's
 SGD at batch 32 to recover the sigmoid-grid fit, and writes float16 npz
 (tens of MB; both packages read it). This is how the shipped
-``assets/weights_compact.npz`` was made.
+``assets/weights_compact.npz`` was made. The last line names the file and
+how many times the fine-tune's batches launched the sphere kernel.
 
     python -m vanishing_points_2017_tpu_torch.compress_weights     # factorize + fine-tune
     python -m vanishing_points_2017_tpu_torch.compress_weights --steps 0   # factorize only
@@ -26,6 +27,7 @@ import torch
 from . import weights
 from .device import require_device
 from .models import factorize, train
+from .ops.sphere import SPHERE_KERNEL
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -75,7 +77,8 @@ def main(argv: list[str] | None = None) -> int:
 
     weights.params_to_npz(fac, args.out, dtype=np.float16)
     sz = os.path.getsize(args.out) / 1e6
-    print(f"wrote {args.out} ({sz:.1f} MB float16)")
+    print(f"wrote {args.out} ({sz:.1f} MB float16); sphere kernel "
+          f"launches: {SPHERE_KERNEL.launches}")
     return 0
 
 

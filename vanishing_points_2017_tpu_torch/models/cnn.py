@@ -14,7 +14,8 @@ to it for every conv and fc product, the product comes back in that dtype,
 and the bias is added in float32; LRN and pooling run in float32. In
 float32 mode TF32 is pinned off for cuDNN and cuBLAS. The weights are
 ``nn.Parameter``s: serving calls the module (fixed chunks, no autograd),
-training calls :meth:`VPNet.train_logits` (``models/train.py``).
+training calls :meth:`VPNet.logits` with dropout masks
+(``models/train.py``).
 """
 
 from __future__ import annotations
@@ -139,7 +140,13 @@ class VPNet(nn.Module):
         return {name: dict(layer.named_parameters())
                 for name, layer in self.layers.items()}
 
-    def _logits(self, x: torch.Tensor, keep=None) -> torch.Tensor:
+    def logits(self, x: torch.Tensor, keep=None) -> torch.Tensor:
+        """fc8 logits (B, 20, 20) of the whole batch, unchunked, with
+        autograd when the caller's mode allows it; the caller runs it (and
+        a backward pass) under :meth:`numerics`. Training (JAX
+        ``forward(train=True, logits=True)``) passes ``keep``: the dropout
+        keep masks after fc6 and fc7, bool (B, width) each, kept units
+        scaled by 2; ``None`` applies no dropout."""
         cd = self.compute_dtype
         h = x
         for name, _o, _k, stride, pad, groups, _b, _s in CONV_SPECS:
@@ -172,20 +179,12 @@ class VPNet(nn.Module):
             return tf32_disabled()
         return contextlib.nullcontext()
 
-    def train_logits(self, x: torch.Tensor, keep=None) -> torch.Tensor:
-        """The training forward (JAX ``forward(train=True, logits=True)``):
-        fc8 logits (B, 20, 20) of the whole batch, unchunked, with autograd;
-        the caller runs it and its backward under :meth:`numerics`.
-        ``keep``: the dropout keep masks after fc6 and fc7, bool (B, width)
-        each, kept units scaled by 2; ``None`` applies no dropout."""
-        return self._logits(x, keep)
-
     def forward_unchunked(self, x: torch.Tensor) -> torch.Tensor:
         """The network on the whole batch at once; cuDNN and cuBLAS then
         pick their kernels by the batch size, so an image's grid depends
         on the batch it came in."""
         with self.numerics():
-            return torch.sigmoid(self._logits(x))
+            return torch.sigmoid(self.logits(x))
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:

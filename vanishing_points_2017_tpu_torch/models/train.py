@@ -48,12 +48,11 @@ class TrainState:
 
 
 def init_state(params: dict, step: int = 0, base_lr: float = BASE_LR,
-               lr_stepsize: int = LR_STEPSIZE,
-               compute_dtype: torch.dtype = torch.bfloat16) -> TrainState:
+               lr_stepsize: int = LR_STEPSIZE) -> TrainState:
     """A state that trains a copy of ``params`` (this port's layout) from
-    ``step`` with zero momentum."""
+    ``step`` with zero momentum, in bfloat16 products."""
     model = cnn.VPNet({n: {k: v.detach().clone() for k, v in d.items()}
-                       for n, d in params.items()}, compute_dtype)
+                       for n, d in params.items()}, torch.bfloat16)
     momentum = {n: {k: torch.zeros_like(v) for k, v in d.items()}
                 for n, d in model.params().items()}
     return TrainState(model, momentum, step, base_lr, lr_stepsize)
@@ -133,7 +132,7 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     params = state.model.params()
     names = [(n, k) for n, d in params.items() for k in d]
     with state.model.numerics():
-        loss = sigmoid_xent(state.model.train_logits(images, keep), labels)
+        loss = sigmoid_xent(state.model.logits(images, keep), labels)
         flat = torch.autograd.grad(loss, [params[n][k] for n, k in names])
     grads: dict = {}
     for (n, k), g in zip(names, flat):

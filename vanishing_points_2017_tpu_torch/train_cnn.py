@@ -8,7 +8,9 @@ default). The mean image is estimated from ``--mean_samples`` rendered
 images unless ``--mean_out`` exists. Checkpoints (``.npz``, read by both
 packages) are written every ``--snapshot`` steps and at the end to
 ``--out``; ``--resume`` takes the parameters and step of one and starts
-with zero momentum.
+with zero momentum. The last line gives the step reached and how many
+times the sphere kernel was launched (0 on the CPU, where its plain
+PyTorch version renders).
 
     python -m vanishing_points_2017_tpu_torch.train_cnn --steps 16000 \\
         --batch 32 --base_lr 5e-4
@@ -31,6 +33,7 @@ import torch
 from . import weights
 from .device import require_device
 from .models import cnn, train
+from .ops.sphere import SPHERE_KERNEL
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -97,6 +100,8 @@ def main(argv: list[str] | None = None) -> int:
             weights.params_to_npz(state.model.params(), args.out,
                                   step=step + 1)
             print(f"snapshot -> {args.out}", flush=True)
+    print(f"done at step {state.step}; sphere kernel launches: "
+          f"{SPHERE_KERNEL.launches}")
     return 0
 
 

@@ -98,23 +98,20 @@ def artifact_fingerprint(path: str | None) -> str:
                                st.st_mtime_ns)
 
 
-def params_npz_numpy(path: str, with_step: bool = False):
+def params_npz_numpy(path: str) -> dict:
     """npz checkpoint -> nested ``{layer: {key: float32 ndarray}}`` in the
-    JAX package's layout (storage may be float16); with ``with_step``,
-    also the ``__step__`` it was written at (0 when it has none)."""
+    JAX package's layout (storage may be float16)."""
     params: dict = {}
-    step = 0
     with np.load(path) as z:
         for key in z.files:
             if key == "__step__":
-                step = int(z[key])
                 continue
             layer, k = key.split("/")
             v = z[key]
             if v.dtype.kind == "f":
                 v = v.astype(np.float32)
             params.setdefault(layer, {})[k] = v
-    return (params, step) if with_step else params
+    return params
 
 
 def params_to_numpy(params: dict) -> dict:
@@ -152,11 +149,13 @@ def params_from_npz(path: str, with_step: bool = False,
                     device: str | torch.device = "cuda"):
     """Checkpoint of either package -> this port's parameters on
     ``device`` (the GPU unless the caller names another), and with
-    ``with_step`` the step it was written at."""
+    ``with_step`` the step it was written at (0 when it has none)."""
     device = require_device(device)
-    params, step = params_npz_numpy(path, with_step=True)
-    params = params_from_numpy(params, device)
-    return (params, step) if with_step else params
+    params = params_from_numpy(params_npz_numpy(path), device)
+    if not with_step:
+        return params
+    with np.load(path) as z:
+        return params, int(z["__step__"]) if "__step__" in z.files else 0
 
 
 def params_from_numpy(params, device: str | torch.device = "cpu") -> dict:
