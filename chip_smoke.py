@@ -26,7 +26,24 @@ GPU) is what runs:
   ``--resume``) and ``compress_weights`` (5 steps) run as commands into a
   temporary directory (each must report a K2 launch for every batch it
   drew), the compressed weights served on the bundled scenes, and nothing
-  under ``assets/`` touched.
+  under ``assets/`` touched;
+* the real data sets' path on miniature York Urban, Eurasian Cities and
+  Horizon Lines in the Wild sets (8 evaluated images each) written by the
+  port's own generators and JPEG writer into a temporary directory: every
+  JPEG's sha256 equals the committed one, K1 is bit-exact on the three
+  non-square grids, and ``benchmark.main`` runs ``--yud``, ``--ecd``,
+  ``--hlw`` (host LSD, batch 4) and ``--yud --device_detect``: 8
+  ``max_error`` lines each, each AUC within 0.02 of JAX's on the same
+  files and of the committed golden, at most 1 of 8 horizons beyond 0.02
+  of JAX's;
+* the reference-shaped entry points (``em/compat.py``): ``renew_cnn_result``
+  and ``run_em_single`` on bundled scene 0's LSD lines (K2 launched once,
+  the horizon of the returned VPs within 0.02 of JAX's);
+* Caffe artifacts at full width: the shipped weights exported (low-rank
+  layers densified, fc6 57600 x 4096) as a ``.caffemodel`` and the mean as
+  a ``.binaryproto``, both loaded through ``load_params_and_mean``, and the
+  CNN's grids on the bundled scenes' sphere images bit-identical to those
+  of the same densified parameters used directly.
 
     python3 chip_smoke.py
 
@@ -47,6 +64,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -66,12 +84,23 @@ HOST_REFERENCE = os.path.join(ROOT, "assets", "examples",
                               "jax_reference_host.npz")
 TRAIN_REFERENCE = os.path.join(ROOT, "assets", "examples",
                                "jax_reference_train.npz")
+MINI_REFERENCE = os.path.join(ROOT, "assets", "examples",
+                              "jax_reference_minisets.npz")
 HORIZON_TOL = 0.02      # normalized horizon error vs the JAX reference
 AUC_TOL = 0.02          # the repo's AUC parity gate (BASELINE.md)
 K2_ATOL = 1e-4          # float image; only the f32 sum order differs
 K2_U8_FRAC = 1e-3       # uint8 images: off by <= 1 on <= 0.1% of pixels
 BATCH = 32
 SYN_COUNT, SYN_BATCH, SYN_MAX_FAR = 50, 8, 2
+# the miniature data sets: the JAX package's golden AUCs for the three
+# formats (tests/test_minisets.py, +-0.02), 8 evaluated images, batch 4,
+# at most 1 of 8 horizons beyond HORIZON_TOL of JAX's (the EM's triplet
+# search sits on a knife edge for some scenes)
+MINI_GOLDEN = {"yud": 0.9750, "ecd": 0.9695, "hlw": 0.9461}
+MINI_N_EVAL, MINI_BATCH, MINI_MAX_FAR = 8, 4, 1
+# run -> (data set, its name in data.datasets.DATASETS, --device_detect)
+MINI_RUNS = {"yud": ("yud", "york", False), "ecd": ("ecd", "eurasian", False),
+             "hlw": ("hlw", "horizon", False), "yud_dev": ("yud", "york", True)}
 # training parity with JAX's two steps: the CPU tests' gates
 # (tests/test_torch_train_grads.py), but for the second bfloat16 loss. It
 # follows the first step's bf16 update and moves with where the bf16
@@ -110,6 +139,16 @@ def count(kernel_list, total: dict, path: str, need) -> None:
                                  "run")
     for src, n in got.items():
         total[src] = total.get(src, 0) + n
+
+
+def checker(failed: list):
+    """``check(ok, what)``: log a check that did not hold and note it in
+    ``failed``, so a phase runs all its checks before it fails."""
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            log(f"FAILED: {what}")
+            failed.append(what)
+    return check
 
 
 def horizon_err(hp1, hp2, ref_hp1, ref_hp2) -> float:
@@ -348,12 +387,8 @@ def training_phase(dev, card: str, kernels_all, sph_k, total: dict,
     from vanishing_points_2017_tpu_torch.models import cnn, train
     from vanishing_points_2017_tpu_torch.pipeline import Pipeline
 
-    failed = []
-
-    def check(ok: bool, what: str) -> None:
-        if not ok:
-            log(f"FAILED: {what}")
-            failed.append(what)
+    failed: list = []
+    check = checker(failed)
 
     ref = np.load(TRAIN_REFERENCE)
     shipped = W.params_npz_numpy(W.default_weights_path())
@@ -500,6 +535,291 @@ def training_phase(dev, card: str, kernels_all, sph_k, total: dict,
     return per_step
 
 
+def miniset_phase(dev, card: str, kernels_all, ccl_k, sph_k, total: dict,
+                  ld) -> None:
+    """The real data sets' path on the card: minis written by the port,
+    K1 on their non-square grids, then ``benchmark.main`` per run of
+    MINI_RUNS, each held against the committed JAX outputs. Every check
+    runs and logs before the phase fails on the first that did not hold."""
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch import benchmark as bench
+    from vanishing_points_2017_tpu_torch import weights as W
+    from vanishing_points_2017_tpu_torch.data import datasets as dsets
+    from vanishing_points_2017_tpu_torch.data import io as dio
+    from vanishing_points_2017_tpu_torch.data import minisets
+    from vanishing_points_2017_tpu_torch.data.cache import StageCache
+    from vanishing_points_2017_tpu_torch.pipeline import (Pipeline,
+                                                           PipelineConfig)
+
+    failed: list = []
+    check = checker(failed)
+
+    ref = np.load(MINI_REFERENCE)
+    cfg = PipelineConfig()
+    stage = "result_w" + W.weights_identity() + "_m" + W.mean_identity()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the three minis, and their files against the committed digests
+        roots = {}
+        for name in ("yud", "ecd", "hlw"):
+            roots[name] = os.path.join(tmp, "minis", name)
+            t0 = time.perf_counter()
+            getattr(minisets, f"make_mini_{name}")(roots[name],
+                                                   n_eval=MINI_N_EVAL)
+            write_s = time.perf_counter() - t0
+            files = [str(f) for f in ref[f"files_{name}"]]
+            digests = []
+            for f in files:
+                path = os.path.join(roots[name], f)
+                if not os.path.isfile(path):
+                    digests.append("missing")
+                    continue
+                with open(path, "rb") as fh:
+                    digests.append(hashlib.sha256(fh.read()).hexdigest())
+            n_bad = sum(a != b for a, b in zip(digests, ref[f"sha256_{name}"]))
+            log(f"mini {name}: {len(files)} JPEG files written in "
+                f"{write_s:.1f} s ({write_s / len(files) * 1e3:.0f} ms/img, "
+                f"drawing and encoding); {n_bad} digests differ from the "
+                "committed ones")
+            check(n_bad == 0, f"mini {name}: {n_bad} JPEG digests differ")
+
+        # ---- K1 on the data sets' grids: 479 x 639 (York Urban), 599 x 799
+        # and 532 x 799 (the other two after the resize to 800), at the
+        # driver's batch
+        for name, table in (("yud", "york"), ("ecd", "eurasian"),
+                            ("hlw", "horizon")):
+            adapter, target = dsets.DATASETS[table]
+            records, start = adapter(roots[name])
+            grays = [Pipeline.ingest_image(r.image_path, target)["gray"]
+                     for r in records[start:start + MINI_BATCH]]
+            packed = packed_of(ld, torch.from_numpy(np.stack(grays)).to(dev))
+            got = ld.connected_components_cuda(packed, 8)
+            want = ld.connected_components_ref(packed, 8)
+            torch.cuda.synchronize()
+            n_bad = int((got != want).sum())
+            log(f"K1 on {name}'s grid B={packed.shape[0]} "
+                f"{tuple(packed.shape[1:])}: {n_bad} labels differ")
+            check(n_bad == 0, f"K1 not bit-exact on {name}'s grid")
+
+        # ---- the benchmark driver, as a user runs it, per run
+        for run, (name, table, detect) in MINI_RUNS.items():
+            adapter, target = dsets.DATASETS[table]
+            records, start = adapter(roots[name])
+            evaluated = records[start:]
+            res_dir = os.path.join(tmp, "results", run)
+            cache = StageCache(os.path.join(res_dir, table),
+                               bench.cache_key(cfg, detect))
+            # the protocol's skipped split gets placeholder results, so the
+            # device stage runs on the evaluated images only
+            for rec in records[:start]:
+                cache.save(rec.name, stage, hp1=np.zeros(3), hp2=np.zeros(3))
+            # the host's share per evaluated image, timed apart
+            dec_s = lsd_s = 0.0
+            for rec in evaluated:
+                t0 = time.perf_counter()
+                img = dio.load_image(rec.image_path)
+                t1 = time.perf_counter()
+                if target is not None:
+                    img = dio.resize_max(img, target)
+                gray = dio.rgb2gray(img)
+                t2 = time.perf_counter()
+                if not detect:
+                    dio.detect_lsd_lines(gray)
+                dec_s += t1 - t0
+                lsd_s += time.perf_counter() - t2
+            argv = [f"--{name}", "--dataset_dir", roots[name], "--result_dir",
+                    res_dir, "--run_em", "--batch", str(MINI_BATCH)]
+            argv += ["--device_detect"] if detect else []
+            buf = io.StringIO()
+            reset(kernels_all)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = bench.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            count(kernels_all, total, f"mini {run}",
+                  need=(ccl_k, sph_k) if detect else (sph_k,))
+            text = buf.getvalue().splitlines()
+            n_err = sum(ln.startswith("max_error:") for ln in text)
+            aucs = [float(ln.split()[-1]) for ln in text
+                    if ln.startswith("AUC:")]
+            stage_line = next((ln for ln in text
+                               if ln.startswith("device stage:")), "none")
+            check(rc == 0 and len(aucs) == 1, f"mini {run}: exit {rc}")
+            check(n_err == MINI_N_EVAL, f"mini {run}: {n_err} max_error lines")
+            check(f"device stage: {MINI_N_EVAL} imgs" in stage_line,
+                  f"mini {run}: {stage_line}")
+            if not aucs:
+                log("\n".join(text[-20:]))
+                continue
+            auc, jax_auc = aucs[0], float(ref[f"auc_{run}"])
+            far = []
+            shape = None
+            for i, rec in enumerate(evaluated):
+                if str(ref[f"{run}_names"][i]) != rec.name:
+                    check(False, f"mini {run}: record {i} is {rec.name}")
+                    continue
+                r = cache.load(rec.name, stage)
+                shape = cache.load(rec.name, "gray" if detect
+                                   else "lines")["image_shape"]
+                e = dio.normalized_horizon_error(
+                    np.cross(r["hp1"].astype(np.float64),
+                             r["hp2"].astype(np.float64)),
+                    np.cross(ref[f"{run}_hp1"][i].astype(np.float64),
+                             ref[f"{run}_hp2"][i].astype(np.float64)),
+                    int(shape[1]), int(shape[0]))
+                if not e <= HORIZON_TOL:
+                    far.append(i)
+                    log(f"mini {run} image {rec.name}: horizon {e:.4f} from "
+                        "JAX's")
+            log(f"mini {run} (images {tuple(int(v) for v in shape)} at the "
+                f"detector): "
+                f"AUC {auc:.5f} vs JAX {jax_auc:.5f}, golden "
+                f"{MINI_GOLDEN[name]}; {len(far)} of {MINI_N_EVAL} horizons "
+                f"beyond {HORIZON_TOL} of JAX's; host per image: JPEG decode "
+                f"{dec_s / MINI_N_EVAL * 1e3:.1f} ms, "
+                + ("no LSD" if detect
+                   else f"LSD {lsd_s / MINI_N_EVAL * 1e3:.1f} ms")
+                + f"; {stage_line}, first batch included, at batch "
+                f"{MINI_BATCH}; driver wall {wall_s:.1f} s for "
+                f"{len(records)} records ({card})")
+            check(abs(auc - jax_auc) <= AUC_TOL,
+                  f"mini {run}: AUC {auc} vs JAX {jax_auc}")
+            check(abs(auc - MINI_GOLDEN[name]) <= AUC_TOL,
+                  f"mini {run}: AUC {auc} vs golden {MINI_GOLDEN[name]}")
+            check(len(far) <= MINI_MAX_FAR,
+                  f"mini {run}: {len(far)} horizons beyond the gate")
+    if failed:
+        raise AssertionError(f"miniset phase: {failed}")
+
+
+def compat_phase(card: str, kernels_all, sph_k, total: dict, params, mean,
+                 bundle: dict, ref_hp1, ref_hp2) -> None:
+    """The reference-shaped one-image entry points on one scene's LSD lines
+    (``bundle`` from ``Pipeline.ingest``), with the default device."""
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch.em import compat
+    from vanishing_points_2017_tpu_torch.em.horizon import \
+        calculate_horizon_and_ortho_vp
+    from vanishing_points_2017_tpu_torch.ops import sphere
+
+    n, n_pad = int(bundle["lmask"].sum()), int(bundle["l"].shape[0])
+    lines, seg = bundle["l"][:n], bundle["lp"][:n]  # the main path's own
+    reset(kernels_all)
+    t0 = time.perf_counter()
+    img, pred = compat.renew_cnn_result(params, mean, lines)
+    renders = sph_k.launches
+    res = compat.run_em_single(lines, seg, pred, img, n_pad=n_pad)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    count(kernels_all, total, "compat", need=(sph_k,))
+    if renders != 1:
+        raise AssertionError(f"renew_cnn_result: {renders} K2 launches")
+    # the image this path rendered on the card against the plain twin on
+    # the same (1, 512, 3) padded lines
+    padded = np.zeros((1, max(512, 1 << (n - 1).bit_length()), 3),
+                      np.float32)
+    padded[0, :n] = lines[:, :3]
+    twin = sphere.sphere_render_ref(
+        torch.from_numpy(padded).cuda(),
+        torch.from_numpy(np.arange(padded.shape[1]) < n)[None].cuda(),
+        img.shape[0])
+    du8 = np.abs(torch.floor(twin[0] * 255).cpu().numpy().astype(np.int32)
+                 - img.astype(np.int32))
+    log(f"compat K2 B=1 {padded.shape[1:]}: uint8 max {int(du8.max())} on "
+        f"{float((du8 > 0).mean()):.2e} of pixels against the plain twin")
+    if not (du8.max() <= 1 and (du8 > 0).mean() <= K2_U8_FRAC):
+        raise AssertionError("compat: K2's image disagrees with its twin")
+    keys = ["vp", "vp_assoc", "counts", "counts_weighted", "count_id",
+            "decision_metric", "sigma", "iterations", "distribution"]
+    if list(res) != keys or res["vp"] is None:
+        raise AssertionError(f"run_em_single: keys {list(res)}")
+    m = res["vp"].shape[0]
+    dist = res["distribution"]
+    shapes_ok = (
+        img.shape == (500, 500) and img.dtype == np.uint8
+        and pred.shape == (20, 20) and res["vp"].shape == (m, 3)
+        and res["vp_assoc"].shape == (n,) and res["counts"].shape == (m,)
+        and res["sigma"].shape == (m,)
+        and res["decision_metric"].shape[0] == m
+        and dist.lv.shape == (n, m) and dist.vl.shape == (m, n)
+        and dist.l.shape == (n,) and dist.angles.shape == (m, 2)
+        and int(res["vp_assoc"].max()) < m)
+    finite = all(bool(np.isfinite(getattr(dist, f)).all())
+                 for f in dist._fields)
+    t = [torch.from_numpy(np.asarray(a, np.float32))[None]
+         for a in (res["vp"], res["counts"])]
+    hp1, hp2, *_ = calculate_horizon_and_ortho_vp(
+        t[0], t[1], torch.ones((1, m), dtype=torch.bool))
+    e_jax = horizon_err(hp1[0], hp2[0], ref_hp1, ref_hp2)
+    log(f"compat scene 0: {n} lines, {m} VPs after {res['iterations']} EM "
+        f"iterations, counts {res['counts'].astype(int).tolist()[:6]}; "
+        f"shapes ok {shapes_ok}, distribution finite {finite}; horizon err "
+        f"vs JAX {e_jax:.5f}; renew_cnn_result + run_em_single "
+        f"{wall * 1e3:.0f} ms ({card})")
+    if not (shapes_ok and finite and e_jax <= HORIZON_TOL):
+        raise AssertionError("compat phase: see the line above")
+
+
+def caffe_phase(dev, card: str, cfg, sphere_u8) -> None:
+    """The shipped weights as Caffe artifacts at full width, there and
+    back; ``sphere_u8`` are the bundled scenes' sphere images on the card."""
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch import weights as W
+    from vanishing_points_2017_tpu_torch.models import caffe_export
+    from vanishing_points_2017_tpu_torch.models import cnn as cnn_mod
+    from vanishing_points_2017_tpu_torch.pipeline import Pipeline
+
+    before = assets_mtimes()
+    params, mean = W.load_params_and_mean()
+    with tempfile.TemporaryDirectory() as tmp:
+        wpath = os.path.join(tmp, "weights.caffemodel")
+        mpath = os.path.join(tmp, "mean.binaryproto")
+        t0 = time.perf_counter()
+        caffe_export.params_to_caffemodel(params, wpath)
+        caffe_export.mean_to_binaryproto(mean, mpath)
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(wpath)
+        t0 = time.perf_counter()
+        cparams, cmean = W.load_params_and_mean(wpath, mpath)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        fingerprints = (W.weights_identity(wpath), W.mean_identity(mpath))
+    if not (cparams["fc6"]["w"].is_cuda and cmean.is_cuda
+            and tuple(cparams["fc6"]["w"].shape) == (57600, 4096)
+            and "none" not in fingerprints):
+        raise AssertionError("Caffe import: fc6 is not the dense matrix on "
+                             "the card")
+    # the same densified parameters without the files: the exporter's
+    # host product u @ v, through params_from_numpy
+    arrays = W.params_to_numpy(params)
+    for layer in arrays.values():
+        if "u" in layer:
+            layer["w"] = layer.pop("u") @ layer.pop("v")
+    dense = W.params_from_numpy(arrays, dev)
+    del arrays
+    with torch.inference_mode():
+        grids = [Pipeline(p, m, cfg).model(cnn_mod.preprocess(sphere_u8, m))
+                 for p, m in ((cparams, cmean), (dense, mean), (params, mean))]
+    same = torch.equal(grids[0], grids[1]) and torch.equal(cmean, mean)
+    finite = bool(torch.isfinite(grids[0].float()).all())
+    after = assets_mtimes()
+    log(f"Caffe at full width: .caffemodel of {size / 1e9:.3f} GB exported "
+        f"in {export_s:.1f} s, loaded to the card in {import_s:.1f} s; CNN "
+        f"grids of the 4 scenes bit-identical to the densified parameters "
+        f"used directly: {same}; max |d| to the factorized weights' grids "
+        f"{float((grids[0].float() - grids[2].float()).abs().max()):.3g}; "
+        f"assets/ untouched: {after == before} ({card})")
+    if not (same and finite and after == before
+            and tuple(grids[0].shape) == (4, 20, 20)):
+        raise AssertionError("Caffe phase: see the line above")
+
+
 def main() -> int:
     import torch
 
@@ -512,6 +832,7 @@ def main() -> int:
     import vanishing_points_2017_tpu_torch as port
     from vanishing_points_2017_tpu_torch import batching, kernels
     from vanishing_points_2017_tpu_torch.data import io as dio
+    from vanishing_points_2017_tpu_torch.data import jpeg
     from vanishing_points_2017_tpu_torch import lsd
     from vanishing_points_2017_tpu_torch.em.consensus import em_and_horizon
     from vanishing_points_2017_tpu_torch.models import cnn as cnn_mod
@@ -534,22 +855,25 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- build: the two kernels in parallel threads (each nvcc is its own
-    # process), the host LSD beside them
+    # process), the host LSD and the JPEG entropy coder (g++) beside them
     ccl_k, sph_k = kernels_all = kernels.all_kernels()
     total: dict = {}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(k.build) for k in kernels_all]
         lsd_build = pool.submit(lsd.detect_line_segments,
                                 np.zeros((8, 8)))
+        jpeg_build = pool.submit(jpeg.encode_jpeg,
+                                 np.zeros((8, 8), np.uint8))
         for k, fut in zip(kernels_all, builds):
             log(f"build {k.source}: {fut.result():.2f} s")
             for line in k.build_log.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas: {line.strip()}")
         lsd_build.result()
-    log(f"builds done in {time.perf_counter() - t0:.2f} s (host LSD "
-        "included)")
+        jpeg_build.result()
+    log(f"builds done in {time.perf_counter() - t0:.2f} s (host LSD and "
+        "JPEG coder included)")
 
     cfg = PipelineConfig()
     grays = [Pipeline.ingest_image(p)["gray"] for p in SCENES]
@@ -584,7 +908,7 @@ def main() -> int:
     log(f"K2 input: {tuple(lines.shape)} lines, "
         f"{mask.sum(1).tolist()[:4]} valid in the first scenes")
     worst = 0.0
-    for b in (4, BATCH):
+    for b in (1, 4, BATCH):
         got = sphere.sphere_render_cuda(lines[:b].contiguous(),
                                         mask[:b].contiguous(), 500)
         ref = sphere.sphere_render_ref(lines[:b], mask[:b], 500)
@@ -827,6 +1151,20 @@ def main() -> int:
     t0 = time.perf_counter()
     per_step = training_phase(dev, card, kernels_all, sph_k, total, grays)
     log(f"training phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the real data sets' path on the three minis, both detectors
+    t0 = time.perf_counter()
+    miniset_phase(dev, card, kernels_all, ccl_k, sph_k, total, ld)
+    log(f"miniset phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the reference-shaped entry points on scene 0's LSD lines
+    compat_phase(card, kernels_all, sph_k, total, params, mean, bundles[0],
+                 host_ref["host_hp1"][0], host_ref["host_hp2"][0])
+
+    # ---- Caffe artifacts at full width, there and back
+    t0 = time.perf_counter()
+    caffe_phase(dev, card, cfg, out["sphere_image"])
+    log(f"Caffe phase: {time.perf_counter() - t0:.1f} s")
 
     # no single PyTorch call computes either function: library_ms is null
     kernel_info = [

@@ -69,6 +69,34 @@ def _plane(kind, b, h, w, seed=0):
     return torch.from_numpy(p.astype(np.int32))
 
 
+@pytest.mark.parametrize("h,w", [(479, 639), (599, 799), (532, 799),
+                                 (7, 500), (7, 700), (7, 1023)])
+def test_ccl_kernel_bit_exact_on_dataset_grids(cuda, h, w):
+    """The real data sets' non-square gradient grids (York Urban's 640x480,
+    and 800x600 / 800x533 after the resize to 800) on drawn-line images,
+    and the columns-per-lane instantiations no square test reaches (4, 6
+    and 8 at W = 500, 700 and 1023) on random planes."""
+    if h > 9:
+        rng = np.random.default_rng(w)
+        img = np.full((2, h + 1, w + 1), 200.0, np.float32)
+        for i in range(2):
+            for _ in range(30):
+                x0, x1 = rng.uniform(0, w, 2)
+                y0, y1 = rng.uniform(0, h, 2)
+                t = np.linspace(0, 1, 4 * w)
+                img[i, np.clip((y0 + t * (y1 - y0)).astype(int), 0, h),
+                    np.clip((x0 + t * (x1 - x0)).astype(int), 0, w)] = 40.0
+        img += rng.normal(0, 3, img.shape).astype(np.float32)
+        _, active, ux, uy = ld.gradient_front(torch.from_numpy(img).to(cuda))
+        packed = ld.pack_edge_masks(active, ux, uy,
+                                    math.cos(math.radians(ld.TOL_DEG)))
+    else:
+        packed = _plane("random", 2, h, w).to(cuda)
+    assert tuple(packed.shape) == (2, h, w)
+    got = ld.connected_components_cuda(packed, 8)
+    assert torch.equal(got, ld.connected_components_ref(packed, 8))
+
+
 @pytest.mark.parametrize("w", [1, 31, 33, 129, 300, 639, 1024])
 @pytest.mark.parametrize("h", [1, 9])
 @pytest.mark.parametrize("kind", ["random", "dense", "all", "none"])

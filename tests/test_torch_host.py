@@ -89,9 +89,18 @@ def test_load_image_reads_png_and_refuses_jpeg(tmp_path):
     Image.fromarray(rgb).save(tmp_path / "a.png")
     np.testing.assert_array_equal(tio.load_image(str(tmp_path / "a.png")),
                                   rgb)
+    # JPEG is read since the port has its own decoder (data/jpeg.py): the
+    # file's pixels are PIL's; what is refused now is a progressive JPEG
+    # and any other format
     Image.fromarray(rgb).save(tmp_path / "a.jpg")
-    with pytest.raises(ValueError, match="JPEG decoding is not ported"):
-        tio.load_image(str(tmp_path / "a.jpg"))
+    np.testing.assert_array_equal(tio.load_image(str(tmp_path / "a.jpg")),
+                                  jio.load_image(str(tmp_path / "a.jpg")))
+    Image.fromarray(rgb).save(tmp_path / "p.jpg", progressive=True)
+    with pytest.raises(ValueError, match="progressive"):
+        tio.load_image(str(tmp_path / "p.jpg"))
+    Image.fromarray(rgb).save(tmp_path / "a.bmp")
+    with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
+        tio.load_image(str(tmp_path / "a.bmp"))
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2017])
@@ -143,7 +152,9 @@ def test_wide_lines_match_pil_on_edge_cases():
 def test_synthetic_records_match_jax():
     rj, sj = jds.synthetic_records(count=3, seed=1, size=320)
     rt, st = tds.synthetic_records(count=3, seed=1, size=320)
-    assert sj == st == 0 and tds.DATASETS.keys() == {"synthetic"}
+    # the table holds the real data sets too since the port reads JPEG
+    assert sj == st == 0 and tds.DATASETS.keys() == jds.DATASETS.keys()
+    assert tds.DATASETS["synthetic"] == (tds.synthetic_records, None)
     for a, b in zip(rj, rt):
         assert a.name == b.name
         np.testing.assert_array_equal(b.image, a.image)

@@ -187,7 +187,8 @@ def test_require_device_refuses_missing_gpu(monkeypatch):
 def test_benchmark_result_dir_and_refused_flags():
     """The stage cache defaults to build/results/ of this checkout, so two
     checkouts on one machine never read each other's results; flags with
-    nothing to act on in the port are refused, not silently accepted."""
+    nothing to act on in the port are refused, not silently accepted, and
+    so is a real data set without its --dataset_dir."""
     from vanishing_points_2017_tpu_torch import benchmark
 
     assert benchmark.RESULT_DIR == os.path.join(ROOT, "build", "results")

@@ -113,11 +113,18 @@ def test_default_weights_path_prefers_newer_dense(tmp_path, monkeypatch,
         str(dense))
 
 
-def test_caffe_artifacts_are_refused():
+def test_caffe_artifacts_are_refused(tmp_path):
+    """Caffe artifacts load since the port has its importer
+    (tests/test_torch_caffe.py); what is refused is a file that is not
+    one: a missing file, and a .caffemodel without the network's layers."""
     for kw in ({"weights_path": "w.caffemodel"},
                {"mean_path": "m.binaryproto"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(FileNotFoundError, match="no such file"):
             tweights.load_params_and_mean(**kw)
+    empty = tmp_path / "empty.caffemodel"
+    empty.write_bytes(b"\x0a\x03net")  # a NetParameter with a name only
+    with pytest.raises(ValueError, match="missing layers"):
+        tweights.load_params_and_mean(weights_path=str(empty), device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "weights"])
@@ -140,13 +147,13 @@ def test_entry_points_default_to_the_gpu(entry):
 
 
 @pytest.mark.parametrize("kw,error", [
-    ({"weights_path": "w.caffemodel"}, NotImplementedError),
-    ({"mean_path": "m.binaryproto"}, NotImplementedError),
+    ({"weights_path": "w.caffemodel"}, FileNotFoundError),
+    ({"mean_path": "m.binaryproto"}, FileNotFoundError),
     ({"weights_path": "missing.npz"}, FileNotFoundError),
     ({"mean_path": "missing.npy"}, FileNotFoundError)])
 def test_artifact_errors_precede_the_device_check(monkeypatch, kw, error):
-    """A Caffe artifact or a missing file is reported as such, also on a
-    machine without a GPU, where the default device would raise too."""
+    """A missing file, Caffe's formats included, is reported as such, also
+    on a machine without a GPU, where the default device would raise too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(error):
         tweights.load_params_and_mean(**kw)

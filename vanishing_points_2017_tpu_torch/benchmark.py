@@ -4,20 +4,28 @@ JAX package, on a torch device).
     python -m vanishing_points_2017_tpu_torch.benchmark --synthetic --run_em
     python -m vanishing_points_2017_tpu_torch.benchmark --synthetic --run_em \\
         --device_detect
+    python -m vanishing_points_2017_tpu_torch.benchmark --yud \\
+        --dataset_dir <York Urban root> --run_em
 
-Picks a dataset, computes the per-image stages that are not cached yet,
+Picks a dataset (``--yud``, ``--ecd``, ``--hlw`` with ``--dataset_dir``, or
+``--synthetic``, which needs no files), computes the per-image stages that are not cached yet,
 then prints each image's ``max_error`` and the horizon-error AUC at cutoff
 0.25. Stage 1 runs on the host: load + LSD (``Pipeline.ingest``), or load
 + grayscale only with ``--device_detect``. Stage 2 (``--run_cnn`` or
 ``--run_em``, one fused stage) runs the rest on ``--device`` in batches of
 ``--batch``, the last batch padded with copies. Stage results live in
-``.npz`` files under ``--result_dir`` (by default ``build/results/`` of
-this checkout, so two checkouts never serve each other's results), keyed
+``.npz`` files under ``--result_dir`` (by default ``config.Paths``'s:
+``$VP_TPU_RESULTS``, else ``build/results/`` of this checkout, so two
+checkouts never serve each other's results), keyed
 by the configuration, the path and the weights and mean fingerprints.
 
-Not ported yet (ROADMAP.md): ``--yud``/``--ecd``/``--hlw`` (they need a
-JPEG decoder), Caffe weights, and the CDF plot (no matplotlib on the GPU
-machine). The JAX driver's ``--update_datalist`` (the real datasets' file
+YUD is evaluated at its native size, ECD and HLW resized to fit 800 x 800;
+the first 25 records of YUD and ECD are the train/val split and are not
+evaluated. The images are baseline JPEG (``data/jpeg.py``) or PNG.
+``--weights``/``--mean`` take ``.npz``/``.npy`` or Caffe's
+``.caffemodel``/``.binaryproto``. The error CDF is plotted into
+``--result_dir`` where matplotlib is installed, and skipped with a line
+saying so where it is not. The JAX driver's ``--update_datalist`` (the real datasets' file
 lists) and ``--no_weights_warn`` (the port always loads a weights
 artifact) have nothing to act on here and are not accepted.
 """
@@ -30,10 +38,15 @@ import time
 
 import numpy as np
 
-RESULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "build", "results")
-NOT_PORTED = {"yud": "York Urban", "ecd": "Eurasian Cities",
-              "hlw": "Horizon Lines in the Wild"}
+from .config import Paths
+
+RESULT_DIR = Paths().result_dir
+# flag -> (data set's name in data.datasets.DATASETS, help)
+DATASET_FLAGS = {"yud": ("york", "York Urban dataset"),
+                 "ecd": ("eurasian", "Eurasian Cities dataset"),
+                 "hlw": ("horizon", "Horizon Lines in the Wild"),
+                 "synthetic": ("synthetic", "self-contained synthetic "
+                               "benchmark (no downloads)")}
 
 
 def cache_key(cfg, device_detect: bool) -> str:
@@ -137,17 +150,33 @@ def horizon_errors(records, cache, result_stage: str, device_detect: bool,
     return np.array(errors), skipped
 
 
+def plot_cdf(plot_points: np.ndarray, out_png: str) -> None:
+    """The error CDF up to the cutoff, as the reference shows it; best
+    effort: without matplotlib a line says that the plot was skipped."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots()
+        ax.plot(plot_points[:, 0], plot_points[:, 1], "-", lw=2, c="b")
+        ax.set_xlabel("horizon error", fontsize=18)
+        ax.set_ylabel("fraction of images", fontsize=18)
+        ax.axis([0, 0.25, 0, 1])
+        fig.savefig(out_png, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+        print(f"CDF plot: {out_png}")
+    except Exception as e:
+        print(f"plot skipped: {e}")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    for flag, name in NOT_PORTED.items():
-        ap.add_argument(f"--{flag}", action="store_true",
-                        help=f"{name} (not ported yet)")
-    ap.add_argument("--synthetic", action="store_true",
-                    help="self-contained synthetic benchmark (no downloads)")
+    for flag, (_, text) in DATASET_FLAGS.items():
+        ap.add_argument(f"--{flag}", action="store_true", help=text)
     ap.add_argument("--dataset_dir", default=None,
-                    help="dataset root (YUD/ECD/HLW; not ported yet)")
+                    help="dataset root (YUD/ECD/HLW)")
     ap.add_argument("--result_dir", default=RESULT_DIR,
                     help="stage-cache directory (default: build/results/ "
                          "of this checkout)")
@@ -159,8 +188,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="run the fused CNN+EM device stage")
     ap.add_argument("--run_em", action="store_true",
                     help="alias of --run_cnn (stages are fused)")
-    ap.add_argument("--weights", default=None, help=".npz params to load")
-    ap.add_argument("--mean", default=None, help="mean image (.npy)")
+    ap.add_argument("--weights", default=None,
+                    help=".npz params / .caffemodel to load")
+    ap.add_argument("--mean", default=None,
+                    help="mean image (.npy or .binaryproto)")
     ap.add_argument("--batch", type=int, default=8,
                     help="device batch for the fused stage")
     ap.add_argument("--device_detect", action="store_true",
@@ -171,13 +202,12 @@ def main(argv: list[str] | None = None) -> int:
                          "0 = single EM. Enters the result-cache identity")
     args = ap.parse_args(argv)
 
-    for flag, name in NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(f"--{flag} ({name}) is not ported yet: it needs a JPEG "
-                     "decoder (see ROADMAP.md)")
-    if not args.synthetic:
-        ap.error("pick a dataset: --synthetic (--yud/--ecd/--hlw are not "
-                 "ported yet)")
+    name = next((n for flag, (n, _) in DATASET_FLAGS.items()
+                 if getattr(args, flag)), None)
+    if name is None:
+        ap.error("pick a dataset: --yud / --ecd / --hlw / --synthetic")
+    if name != "synthetic" and not args.dataset_dir:
+        ap.error(f"--dataset_dir required for {name}")
 
     from . import weights as wload
     from .data import datasets as dsets
@@ -190,8 +220,11 @@ def main(argv: list[str] | None = None) -> int:
     params, mean = wload.load_params_and_mean(args.weights, args.mean,
                                               device=dev)
     pipe = Pipeline(params, mean, cfg, device=dev)
-    name, target = "synthetic", None
-    records, start = dsets.synthetic_records(count=args.num_synthetic)
+    adapter, target = dsets.DATASETS[name]
+    if name == "synthetic":
+        records, start = adapter(count=args.num_synthetic)
+    else:
+        records, start = adapter(args.dataset_dir)
 
     cache = StageCache(os.path.join(args.result_dir, name),
                        cache_key(cfg, args.device_detect))
@@ -220,8 +253,9 @@ def main(argv: list[str] | None = None) -> int:
     if not len(errors):
         print("no evaluated images (missing results or ground truth)")
         return 1
-    auc, _ = calc_auc(errors, cutoff=0.25)
+    auc, plot_points = calc_auc(errors, cutoff=0.25)
     print("AUC: ", auc)
+    plot_cdf(plot_points, os.path.join(args.result_dir, f"auc_{name}.png"))
     return 0
 
 

@@ -1,5 +1,22 @@
-"""Dataset adapters (``data/datasets.py`` of the JAX package): the
-synthetic benchmark only.
+"""Dataset adapters (``data/datasets.py`` of the JAX package): YUD, ECD
+and HLW ground truth, and the synthetic benchmark.
+
+* **YUD** (York Urban): images ``P*/P*.jpg``; camera intrinsics from
+  ``cameraParameters.mat`` with the reference's hard-coded principal point
+  (13, -11) and scale 2/640 (a quirk that is kept); each image's
+  ``*GroundTruthVP_CamParams.mat`` gives 3 orthogonal VPs, the horizon is
+  VP1 x VP3. The first 25 images are train/val and skipped.
+* **ECD** (Eurasian Cities): images ``*.jpg``; ``*hor.mat`` ground truth
+  in pixel coordinates, converted to the normalized centre-origin y-up
+  frame with the image's size (read from the file's header alone). The
+  first 25 skipped; images are resized to fit 800 x 800.
+* **HLW** (Horizon Lines in the Wild): the test list ``split/test.txt``;
+  ``metadata.csv`` rows matched by basename give two horizon points scaled
+  by the original image size. Resized to 800.
+* **synthetic**: rendered Manhattan scenes with exact horizons, so the
+  benchmark runs without the downloads.
+
+Each adapter returns (records, number of leading records to skip).
 
 The synthetic set draws random Manhattan scenes (``models/synth.py``) and
 renders their segments as dark 2-px lines on a light background, with
@@ -9,18 +26,20 @@ with PIL's ``ImageDraw.line(width=2)``; the port does not use PIL, so
 :func:`render_scene_image` reproduces that drawing pixel for pixel
 (Pillow's ``ImagingDrawWideLine`` and its scanline polygon fill) in
 numpy, and keeps the generator's stream in step with the JAX package's.
-
-YUD, ECD and HLW need a JPEG decoder the port does not have yet
-(ROADMAP.md): asking for them raises.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import glob
+import json
+import os
 
 import numpy as np
 
 from ..models import synth
+from . import io as dio
 
 LINE_WIDTH = 2
 _INK, _PAPER = 40, 220
@@ -33,6 +52,91 @@ class Record:
     image_path: str | None = None
     image: np.ndarray | None = None  # inline image (synthetic)
     true_horizon: np.ndarray | None = None  # normalized homogeneous line
+
+
+def horizon_from_points(p1: np.ndarray, p2: np.ndarray) -> np.ndarray:
+    return np.cross(p1, p2)
+
+
+def yud_records(root: str) -> tuple[list[Record], int]:
+    import scipy.io as sio
+
+    cam = sio.loadmat(os.path.join(root, "cameraParameters.mat"))
+    f = cam["focal"][0, 0]
+    ps = cam["pixelSize"][0, 0]
+    # the reference ignores cam['pp'] and hard-codes (13, -11)
+    k_mat = np.array([[f / ps, 0, 13], [0, f / ps, -11], [0, 0, 1]])
+    s_mat = np.array([[2.0 / 640, 0, 0], [0, 2.0 / 640, 0], [0, 0, 1]])
+
+    records = []
+    for img_path in sorted(glob.glob(os.path.join(root, "P*", "P*.jpg"))):
+        image_id = os.path.splitext(os.path.basename(img_path))[0]
+        gt_path = os.path.join(os.path.dirname(img_path),
+                               f"{image_id}GroundTruthVP_CamParams.mat")
+        true_h = None
+        if os.path.isfile(gt_path):
+            vp = np.asarray(sio.loadmat(gt_path)["vp"], np.float64)
+            tv = k_mat @ vp
+            tv = tv / tv[2:3, :]
+            tv = s_mat @ tv
+            true_h = horizon_from_points(tv[:, 0] / tv[2, 0],
+                                         tv[:, 2] / tv[2, 2])
+        records.append(Record(name=image_id, image_path=img_path,
+                              true_horizon=true_h))
+    return records, 25
+
+
+def ecd_records(root: str) -> tuple[list[Record], int]:
+    import scipy.io as sio
+
+    records = []
+    for img_path in sorted(glob.glob(os.path.join(root, "*.jpg"))):
+        base = os.path.splitext(img_path)[0]
+        true_h = None
+        hor_path = f"{base}hor.mat"
+        if os.path.isfile(hor_path):
+            h, w = dio.image_size(img_path)
+            scale = max(w, h)
+            hor = np.squeeze(sio.loadmat(hor_path)["horizon"]).astype(
+                np.float64)
+            # intersect with the pixel verticals x = w and x = 0, then
+            # normalize
+            p1 = np.cross(hor, np.array([-1.0, 0.0, float(w)]))
+            p2 = np.cross(hor, np.array([-1.0, 0.0, 0.0]))
+            p1, p2 = p1 / p1[2], p2 / p2[2]
+            for p in (p1, p2):
+                p[0] = (p[0] - w / 2.0) / (scale / 2.0)
+                p[1] = -(p[1] - h / 2.0) / (scale / 2.0)
+            true_h = horizon_from_points(p1, p2)
+        records.append(Record(name=os.path.basename(base),
+                              image_path=img_path, true_horizon=true_h))
+    return records, 25
+
+
+def hlw_records(root: str) -> tuple[list[Record], int]:
+    meta = {}
+    with open(os.path.join(root, "metadata.csv")) as fh:
+        for row in csv.reader(fh):
+            meta[os.path.splitext(os.path.basename(row[0]))[0]] = row
+
+    with open(os.path.join(root, "split", "test.txt")) as fh:
+        names = [ln.strip() for ln in fh if ln.strip()]
+    records = []
+    for name in names:
+        key = os.path.splitext(os.path.basename(name))[0]
+        true_h = None
+        if key in meta:
+            row = meta[key]
+            scale_orig = max(float(row[1]), float(row[2]))
+            p1 = np.array([float(row[3]), float(row[4]), 1.0])
+            p2 = np.array([float(row[5]), float(row[6]), 1.0])
+            p1[0:2] /= scale_orig / 2.0
+            p2[0:2] /= scale_orig / 2.0
+            true_h = horizon_from_points(p1, p2)
+        records.append(Record(name=key,
+                              image_path=os.path.join(root, "images", name),
+                              true_horizon=true_h))
+    return records, 0
 
 
 def _round_up(f: np.ndarray) -> np.ndarray:
@@ -167,23 +271,32 @@ def draw_wide_lines(canvas: np.ndarray, segments_px: np.ndarray,
     canvas[np.cumsum(diff, 1)[:, :w] > 0] = ink
 
 
-def render_scene_image(scene, size: int = 640,
-                       rng: np.random.Generator | None = None) -> np.ndarray:
-    """Draw the scene's segments as dark 2-px lines on a light background
-    so a line detector can re-extract them; with ``rng``, add the JAX
-    package's N(0, 3) sensor noise (one draw of size x size)."""
-    s = _F32(size / 2.0)
+def render_scene_image_wh(scene, width: int, height: int,
+                          rng: np.random.Generator | None = None
+                          ) -> np.ndarray:
+    """Draw the scene's normalized-frame segments (centre origin, +y up,
+    the long axis [-1, 1]) as dark 2-px lines on a light width x height
+    background so a line detector can re-extract them; with ``rng``, add
+    the JAX package's N(0, 3) sensor noise (one draw of height x width)."""
+    s = _F32(max(width, height) / 2.0)
+    cx, cy = _F32(width / 2.0), _F32(height / 2.0)
     seg = np.asarray(scene.segments, _F32)
     # pixel coordinates in float32, as numpy computes them from the
     # float32 segments in the JAX package's drawing loop
-    px = np.stack([seg[:, 0] * s + s, -seg[:, 1] * s + s,
-                   seg[:, 2] * s + s, -seg[:, 3] * s + s], 1)
-    canvas = np.full((size, size), _PAPER, np.uint8)
+    px = np.stack([seg[:, 0] * s + cx, -seg[:, 1] * s + cy,
+                   seg[:, 2] * s + cx, -seg[:, 3] * s + cy], 1)
+    canvas = np.full((height, width), _PAPER, np.uint8)
     draw_wide_lines(canvas, px.astype(np.float64), _INK)
     arr = canvas.astype(np.float64)
     if rng is not None:
         arr = np.clip(arr + rng.normal(0, 3.0, arr.shape), 0, 255)
     return arr.astype(np.uint8)
+
+
+def render_scene_image(scene, size: int = 640,
+                       rng: np.random.Generator | None = None) -> np.ndarray:
+    """The square case of :func:`render_scene_image_wh`."""
+    return render_scene_image_wh(scene, size, size, rng)
 
 
 def synthetic_records(count: int = 25, seed: int = 7,
@@ -201,4 +314,62 @@ def synthetic_records(count: int = 25, seed: int = 7,
     return records, 0
 
 
-DATASETS = {"synthetic": (synthetic_records, None)}
+# name -> (adapter, the size the images are resized to fit, or None)
+DATASETS = {
+    "york": (yud_records, None),
+    "eurasian": (ecd_records, 800),
+    "horizon": (hlw_records, 800),
+    "synthetic": (synthetic_records, None),
+}
+
+
+def get_data_list(source_folder: str, destination_folder: str, name: str,
+                  dataset_name: str | None = None,
+                  distance_measure: str = "angle", use_weights: bool = True,
+                  do_split: bool = True, do_merge: bool = True,
+                  update: bool = False) -> dict:
+    """The reference's manifest function: the EM configuration goes into the
+    data set's name (configuration = cache identity), the image list is
+    globbed by each data set's convention, and the manifest is kept as
+    JSON and reused unless ``update``."""
+    fullname = (f"{name}_{distance_measure}_"
+                f"{'' if use_weights else 'no'}weights_"
+                f"{'' if do_split else 'no'}split_"
+                f"{'' if do_merge else 'no'}merge")
+    manifest_path = os.path.join(destination_folder, f"{fullname}.json")
+    if os.path.isfile(manifest_path) and not update:
+        with open(manifest_path) as fh:
+            return json.load(fh)
+
+    if dataset_name == "york":
+        image_files = glob.glob(os.path.join(source_folder, "P*", "P*.jpg"))
+    elif dataset_name == "eurasian":
+        image_files = glob.glob(os.path.join(source_folder, "*.jpg"))
+    elif dataset_name == "horizon":
+        with open(os.path.join(source_folder, "split", "test.txt")) as fh:
+            image_files = [os.path.join(source_folder, "images", ln.strip())
+                           for ln in fh if ln.strip()]
+    else:
+        image_files = []
+        for ext in ("*.jpg", "*.png", "*.pgm"):
+            image_files += glob.glob(os.path.join(source_folder, ext))
+    image_files.sort()
+
+    dest = os.path.join(destination_folder, fullname)
+    dataset = {
+        "source_folder": source_folder,
+        "destination_folder": dest,
+        "name": fullname,
+        "distance_measure": distance_measure,
+        "use_weights": use_weights,
+        "do_split": do_split,
+        "do_merge": do_merge,
+        "image_files": image_files,
+        "cache_files": [os.path.join(
+            dest, os.path.splitext(os.path.basename(f))[0] + ".result.npz")
+            for f in image_files],
+    }
+    os.makedirs(dest, exist_ok=True)
+    with open(manifest_path, "w") as fh:
+        json.dump(dataset, fh, indent=1)
+    return dataset

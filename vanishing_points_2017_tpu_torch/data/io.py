@@ -1,10 +1,12 @@
 """Host-side image ingest without PIL (``data/io.py`` of the JAX package).
 
-The port does not use PIL, so :func:`load_image` decodes PNG itself with
-``zlib`` and numpy: 8-bit grayscale, grayscale+alpha, RGB and RGBA,
-non-interlaced (everything the bundled scenes and the usual exported
-photos use); other formats, JPEG included, raise. :func:`resize_max`
-reproduces Pillow's LANCZOS resize pixel for pixel. :func:`detect_lsd_lines`
+The port does not use PIL, so :func:`load_image` decodes the file itself,
+by its signature: PNG with ``zlib`` and numpy (8-bit grayscale,
+grayscale+alpha, RGB and RGBA, non-interlaced: everything the bundled
+scenes and the usual exported photos use), baseline JPEG through
+``data/jpeg.py`` (the datasets' format; progressive files raise); other
+formats raise. :func:`encode_png` writes 8-bit grayscale and RGB PNGs.
+:func:`resize_max` reproduces Pillow's LANCZOS resize pixel for pixel. :func:`detect_lsd_lines`
 runs the host LSD (``lsd.py``) and normalizes its segments.
 ``rgb2gray`` and ``normalized_horizon_error`` are the JAX package's
 ``data/io.py`` and ``data/datasets.py`` functions.
@@ -93,16 +95,73 @@ def decode_png(blob: bytes) -> np.ndarray:
     return img.reshape(h, w) if ch == 1 else img.reshape(h, w, ch)
 
 
+def png_size(blob: bytes) -> tuple[int, int]:
+    """(height, width) from the IHDR chunk alone."""
+    if blob[:8] != _PNG_SIG or blob[12:16] != b"IHDR":
+        raise ValueError("not a PNG file")
+    w, h = struct.unpack(">II", blob[16:24])
+    return h, w
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 (H, W) grayscale or (H, W, 3) RGB -> PNG bytes (filter type
+    None on every scanline, zlib level 6)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError("encode_png: expected a uint8 (H, W) or (H, W, 3) "
+                         "array")
+    h, w = img.shape[:2]
+
+    def chunk(ctype: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body)))
+
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], 1)
+    return (_PNG_SIG
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                         0 if img.ndim == 2 else 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """(height, width) of a PNG or JPEG file from its header: the first
+    64 KiB are read, and the rest only where a JPEG's frame header lies
+    beyond them (after a large embedded profile or thumbnail)."""
+    from . import jpeg
+
+    with open(path, "rb") as f:
+        blob = f.read(1 << 16)
+        if blob[:8] == _PNG_SIG:
+            return png_size(blob)
+        if blob[:2] != jpeg.JPEG_SIG:
+            raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+        try:
+            return jpeg.jpeg_size(blob)
+        except ValueError as e:
+            rest = f.read()
+            if not (rest and str(e).startswith("truncated")):
+                raise
+        return jpeg.jpeg_size(blob + rest)
+
+
 def load_image(path: str) -> np.ndarray:
-    """PNG file -> RGB (or grayscale) uint8 array; an alpha channel is
-    dropped, like the JAX package's ``convert("RGB")``. Any other format
-    (JPEG included) raises: the port has no decoder for it yet."""
+    """PNG or baseline JPEG file -> RGB (or grayscale) uint8 array, by the
+    file's signature; a PNG's alpha channel is dropped, like the JAX
+    package's ``convert("RGB")``. Any other format raises."""
+    from . import jpeg
+
     with open(path, "rb") as f:
         blob = f.read()
+    if blob[:2] == jpeg.JPEG_SIG:
+        try:
+            return jpeg.decode_jpeg(blob)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     if blob[:8] != _PNG_SIG:
-        raise ValueError(f"{path}: not a PNG file; the PyTorch port reads "
-                         "PNG only (JPEG decoding is not ported yet, see "
-                         "ROADMAP.md)")
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file; the "
+                         "PyTorch port reads these two formats")
     img = decode_png(blob)
     if img.ndim == 3:
         img = img[..., :3] if img.shape[2] == 4 else (

@@ -18,6 +18,22 @@ import math
 import numpy as np
 import torch
 
+from ..ops.select import topk_stable
+
+
+def num_combo3(n: int) -> int:
+    """C(n, 3), the number of VP triplets the search scores."""
+    if n < 3:
+        return 0
+    return n * (n - 1) * (n - 2) // 6
+
+
+def vp_in_image(vp: np.ndarray) -> bool:
+    """|x/z| <= 1 and |y/z| <= 1 (the reference's ``VPinImage``)."""
+    v = np.asarray(vp, np.float64)
+    v = v / v[2]
+    return bool(abs(v[0]) <= 1 and abs(v[1]) <= 1)
+
 
 @functools.lru_cache(maxsize=None)
 def _triplets(n: int) -> np.ndarray:
@@ -186,3 +202,30 @@ def calculate_horizon_and_ortho_vp(vps: torch.Tensor, counts: torch.Tensor,
     hp2 = torch.linalg.cross(hlin_f, _vec([-1.0, 0.0, 1.0], vps).expand(b, 3))
     return (hp1 / hp1[:, 2:3], hp2 / hp2[:, 2:3], z_vp_f, h_vp1_f, h_vp2_f,
             combo_f)
+
+
+def triplet_score_margin(vps: torch.Tensor, counts: torch.Tensor,
+                         alive: torch.Tensor, maxbest: int = 20,
+                         theta_vmin: float = float(np.pi / 10),
+                         theta_z: float = float(np.pi / 4),
+                         pos_gate_ideal_tol: float = float("inf")):
+    """How close the horizon's triplet search is to picking another
+    triplet: two triplets that score nearly alike let a float32-level
+    change of the segments flip the winner, and with it the horizon's tilt.
+    Same arguments as :func:`calculate_horizon_and_ortho_vp`; returns, each
+    (B,): ``s1`` and ``s2``, the two highest triplet scores;
+    ``rel_margin`` = (s1 - max(s2, 0)) / s1 (0 when s1 <= 0);
+    ``disagreement``, the largest |dy| at x = +-1 between the two
+    triplets' horizons (0 when s2 <= 0): a small margin matters only where
+    the runner-up's horizon lies elsewhere."""
+    t = _score_triplets(vps, counts, alive, maxbest, theta_vmin, theta_z,
+                        pos_gate_ideal_tol)
+    top, idx = topk_stable(t["score"], 2)
+    s1, s2 = top[:, 0], top[:, 1]
+    rel_margin = torch.where(
+        s1 > 0, (s1 - torch.clamp(s2, min=0.0)) / s1, 0.0)
+    y1 = torch.gather(t["hp1"][..., 1], 1, idx)
+    y2 = torch.gather(t["hp2"][..., 1], 1, idx)
+    d = torch.maximum(torch.abs(y1[:, 0] - y1[:, 1]),
+                      torch.abs(y2[:, 0] - y2[:, 1]))
+    return s1, s2, rel_margin, torch.where(s2 > 0, d, 0.0)

@@ -7,10 +7,13 @@ Each image goes through ``Pipeline.process(image, target_size=640)``
 (host LSD, then render -> CNN -> EM -> horizon on the device); the driver
 prints the horizon's two points in pixels and, where a
 ``<image>.horizon.npy`` ground truth lies beside the image, the normalized
-horizon error. ``--images`` takes other PNG files or directories.
-
-Not ported yet (ROADMAP.md): ``--show`` (no matplotlib on the GPU
-machine), JPEG inputs and Caffe weights.
+horizon error. ``--images`` takes other PNG or baseline JPEG files, or
+directories of them; ``--weights``/``--mean`` also take Caffe's
+``.caffemodel``/``.binaryproto``. ``--show`` writes each image's result
+figure (``viz.show_em_result``) into ``example/`` under
+``config.Paths().result_dir`` (``build/results/`` of this checkout unless
+``$VP_TPU_RESULTS`` is set); it needs matplotlib and raises where that is
+not installed.
 """
 
 from __future__ import annotations
@@ -20,8 +23,12 @@ import os
 
 import numpy as np
 
+from .config import Paths
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(_ROOT, "assets", "examples")
+RESULTS = os.path.join(Paths().result_dir, "example")
+IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png")
 
 
 def image_paths(args_images: list[str] | None) -> list[str]:
@@ -35,7 +42,7 @@ def image_paths(args_images: list[str] | None) -> list[str]:
     for p in args_images:
         if os.path.isdir(p):
             paths += sorted(os.path.join(p, f) for f in os.listdir(p)
-                            if f.lower().endswith(".png"))
+                            if f.lower().endswith(IMAGE_SUFFIXES))
         else:
             paths.append(p)
     return paths
@@ -50,8 +57,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--weights", default=None)
     ap.add_argument("--mean", default=None)
     ap.add_argument("--images", nargs="*", default=None, metavar="PATH",
-                    help="run on these PNG files (or all PNGs in a "
+                    help="run on these image files (or all jpg/png in a "
                          "directory) instead of the bundled scenes")
+    ap.add_argument("--show", action="store_true",
+                    help="write each image's result figure into example/ "
+                         "under the result directory (needs matplotlib)")
     ap.add_argument("--consensus", type=int, default=0, metavar="K",
                     help="K-member dropout-ensemble horizon (medoid pick); "
                          "0 = single EM")
@@ -68,7 +78,8 @@ def main(argv: list[str] | None = None) -> int:
         horizon_consensus=args.consensus), device=dev)
     paths = image_paths(args.images)
     if not paths:
-        ap.error(f"--images resolved to no PNG files (got: {args.images!r})")
+        ap.error("--images resolved to no jpg/jpeg/png files "
+                 f"(got: {args.images!r})")
 
     for path in paths:
         print("image file: ", path)
@@ -91,6 +102,17 @@ def main(argv: list[str] | None = None) -> int:
                 Pipeline.horizon_line(res), np.load(gt).astype(np.float64),
                 int(width), int(height))
             print(f"horizon error vs ground truth: {err:.4f}")
+
+        if args.show:
+            from . import viz
+
+            os.makedirs(RESULTS, exist_ok=True)
+            out_png = os.path.join(
+                RESULTS,
+                os.path.splitext(os.path.basename(path))[0] + ".result.png")
+            viz.show_em_result(res, dio.resize_max(image, 640), out_png,
+                               maxbest=3, horizon=(hp1, hp2))
+            print("wrote", out_png)
     return 0
 
 

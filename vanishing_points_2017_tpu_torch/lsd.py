@@ -16,13 +16,12 @@ and returns (N, 7) float64 columns x1, y1, x2, y2, width, precision,
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
+
+from . import hostbuild
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_ROOT, "vanishing_points_2017_tpu", "lsd", "lsd.cpp")
@@ -34,35 +33,15 @@ _lib = None
 
 
 def _lib_path() -> str:
-    with open(SOURCE, "rb") as f:
-        h = hashlib.sha256(f.read())
-    h.update(" ".join(FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"liblsd-{h.hexdigest()[:12]}.so")
-
-
-def _build(path: str) -> None:
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found: the host LSD is built from "
-                           f"{SOURCE} at first use")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([gxx, *FLAGS, SOURCE, "-o", tmp],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed on {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
+    return hostbuild.library_path(SOURCE, FLAGS, BUILD_DIR, "liblsd")
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = _lib_path()
-            if not os.path.isfile(path):
-                _build(path)
-            lib = ctypes.CDLL(path)
+            lib = ctypes.CDLL(hostbuild.build_shared(SOURCE, FLAGS,
+                                                     BUILD_DIR, "liblsd"))
             lib.lsd_detect.restype = ctypes.c_int
             lib.lsd_detect.argtypes = [
                 ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,

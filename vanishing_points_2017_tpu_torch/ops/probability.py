@@ -4,7 +4,11 @@ batched: every function takes a leading image dimension B.
 Log-space likelihoods with the reference's floors (s >= 1e-200,
 p(l) >= 1e-12), masked static shapes (padded lines, dead VP slots), and the
 reference's quirks: the duplicated d4 wraparound term of ``calc_pdf``
-(``wrap_quirk``) and the top-100 truncation of the CNN prior.
+(``wrap_quirk``) and the top-100 truncation of the CNN prior. The "area"
+distance (:func:`calc_lvsq_area`) keeps the reference's cross product of a
+2-vector with a 3-vector, which numpy pads with a zero: the VP acts as a
+point at infinity. It is exported as in the JAX package; ``EMConfig``
+refuses it as a distance measure there and here.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -173,3 +178,66 @@ def calc_lvsq_single(v: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
                          * torch.linalg.vector_norm(vec2, dim=-1)))
     d = 1.0 - c
     return d * d
+
+
+def _area_measure(vx, vy, lp: torch.Tensor) -> torch.Tensor:
+    """(a b^2 / c)^2 of the triangle between a segment and the line through
+    its midpoint with direction (vx, vy): b the distance of endpoint 1 to
+    that line, c half the segment's length, a = sqrt(c^2 - b^2) (NaN when
+    b > c, as in the reference). vx, vy and lp[..., k] broadcast."""
+    lmx = 0.5 * (lp[..., 0] + lp[..., 2])
+    lmy = 0.5 * (lp[..., 1] + lp[..., 3])
+    # cross((vx, vy, 0), (lmx, lmy, 1)) = (vy, -vx, vx lmy - vy lmx)
+    vl2 = vx * lmy - vy * lmx
+    b = torch.abs(vy * lp[..., 0] - vx * lp[..., 1] + vl2) / torch.sqrt(
+        vy * vy + vx * vx)
+    dx, dy = lmx - lp[..., 2], lmy - lp[..., 3]
+    c = torch.sqrt(dx * dx + dy * dy)
+    t = torch.sqrt(c * c - b * b) * b * b / c
+    return t * t
+
+
+def calc_lvsq_area(v: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
+    """Triangle-area measure: (B, M, 3) VPs, (B, N, 4) segments ->
+    (B, N, M)."""
+    v2 = v[..., 0:2] / v[..., 2:3]
+    return _area_measure(v2[..., None, :, 0], v2[..., None, :, 1],
+                         lp[..., :, None, :])
+
+
+def calc_lvsq_area_single(v: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
+    """Per-(VP, line) area measure, broadcasting (..., 3) with (..., 4) ->
+    (...,)."""
+    v2 = v[..., 0:2] / v[..., 2:3]
+    return _area_measure(v2[..., 0], v2[..., 1], lp)
+
+
+def pdf_grid(cnn_response: torch.Tensor, n: int = 50,
+             wrap_quirk: bool = True) -> dict:
+    """The GMM prior of (B, 20, 20) CNN grids on an n x n angle grid, for
+    plots: ``X`` and ``Y`` (n, n), ``p`` (B, n, n)."""
+    xs = torch.from_numpy(np.arange(-np.pi / 2, np.pi / 2, np.pi / n,
+                                    dtype=np.float32)).to(cnn_response.device)
+    grid_x, grid_y = torch.meshgrid(xs, xs, indexing="xy")
+    q = torch.stack([grid_x.reshape(-1), grid_y.reshape(-1)], dim=-1)
+    b = cnn_response.shape[0]
+    p = calc_pdf(pdf_params(cnn_response), q[None].expand(b, -1, -1),
+                 wrap_quirk)
+    return {"X": grid_x, "Y": grid_y, "p": p.reshape(b, *grid_x.shape)}
+
+
+def calc_vp_line_triangles(vp: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
+    """Signed test of whether each segment faces the VP: vp (..., 3),
+    lp (..., N, 4) -> (..., N)."""
+    v = (vp[..., 0:2] / vp[..., 2:3])[..., None, :]
+    p1, p2 = lp[..., 0:2], lp[..., 2:4]
+    a1 = torch.sum((v - p1) * (p2 - p1), dim=-1)
+    a2 = torch.sum((v - p2) * (p1 - p2), dim=-1)
+    return torch.where(a1 > 0, torch.minimum(a1, a2), a1)
+
+
+def vp_is_within_image(vp: torch.Tensor) -> torch.Tensor:
+    """|x/z| < 2 and |y/z| < 2 (looser than the horizon module's +-1
+    ``vp_in_image``): (..., 3) -> (...,) bool."""
+    v2 = vp[..., 0:2] / vp[..., 2:3]
+    return (torch.abs(v2[..., 0]) < 2) & (torch.abs(v2[..., 1]) < 2)

@@ -133,3 +133,41 @@ def sphere_image_uint8(l: torch.Tensor, lmask: torch.Tensor, size: int = 500,
     """uint8 sphere images floor(img * 255), the CNN-input contract."""
     img = sphere_render(l, lmask, size=size, alpha=alpha, linewidth=linewidth)
     return torch.floor(img * 255.0).to(torch.uint8)
+
+
+def save_sphere_image(l: torch.Tensor, lmask: torch.Tensor, filename: str,
+                      size: int = 500, alpha: float = 0.5) -> None:
+    """Render one image's lines, l (N, 3) and lmask (N,), and write the
+    sphere image as an 8-bit grayscale PNG."""
+    from ..data.io import encode_png
+
+    img = sphere_image_uint8(l[None], lmask[None], size=size, alpha=alpha)
+    with open(filename, "wb") as fh:
+        fh.write(encode_png(img[0].cpu().numpy()))
+
+
+def segments_image(lp: torch.Tensor, lmask: torch.Tensor,
+                   size: int = 250) -> torch.Tensor:
+    """Raw segments in the normalized frame, lp (B, N, 4) and lmask (B, N),
+    as white 1-px lines on black: (B, size, size) uint8, with the main
+    renderer's analytic coverage (the reference's unused ``makeImage``)."""
+    lp = lp.to(torch.float32)
+    px = torch.arange(size, dtype=torch.float32, device=lp.device)
+    # the canvas spans [-1, 1]; y up, so row 0 is the top
+    xs = (px - 0.5 * size + 0.5) * (2.0 / size)
+    gx, gy = torch.meshgrid(xs, -xs, indexing="xy")
+    pts = torch.stack([gx, gy], dim=-1)                     # (S, S, 2)
+    out = torch.zeros((lp.shape[0], size, size), dtype=torch.float32,
+                      device=lp.device)
+    for c0 in range(0, lp.shape[1], LINE_CHUNK):
+        a = lp[:, c0:c0 + LINE_CHUNK, None, None, 0:2]      # (B, C, 1, 1, 2)
+        ab = lp[:, c0:c0 + LINE_CHUNK, None, None, 2:4] - a
+        denom = torch.sum(ab * ab, dim=-1)
+        denom = torch.where(denom == 0, 1.0, denom)
+        t = torch.clamp(torch.sum((pts - a) * ab, dim=-1) / denom, 0.0, 1.0)
+        closest = a + t[..., None] * ab
+        dist = torch.linalg.vector_norm(pts - closest, dim=-1) * (size / 2.0)
+        cov = torch.clamp(1.0 - dist, 0.0, 1.0)
+        cov = torch.where(lmask[:, c0:c0 + LINE_CHUNK, None, None], cov, 0.0)
+        out = torch.maximum(out, cov.amax(dim=1))
+    return torch.floor(out * 255.0).to(torch.uint8)

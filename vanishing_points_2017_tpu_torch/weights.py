@@ -3,7 +3,8 @@
 Counterpart of ``vanishing_points_2017_tpu/weights.py``: the shipped
 artifact is ``assets/weights_compact.npz`` (float16 storage, conv weights
 in HWIO, fc6/fc7 factorized as rank-256 ``u``/``v`` pairs) plus
-``assets/mean.npy``. :func:`params_from_numpy` turns the JAX package's
+``assets/mean.npy``; Caffe's ``.caffemodel`` and ``.binaryproto`` load
+through ``models/caffe_import.py``. :func:`params_from_numpy` turns the JAX package's
 parameter layout into this port's (OIHW conv weights, ``(in, out)`` fc
 matrices kept as they are), so either package's checkpoints load here;
 :func:`params_to_npz` writes this port's parameters back in the JAX
@@ -190,21 +191,24 @@ def load_params_and_mean(weights_path: str | None = None,
                          mean_path: str | None = None,
                          device: str | torch.device = "cuda"):
     """-> (params, mean) as tensors on ``device`` (the GPU unless the
-    caller names another); the shipped artifacts by default. Raises for
-    Caffe artifacts, whose import is not ported yet, then when a named
-    file does not exist, then when ``device`` is a GPU and none is
-    present."""
+    caller names another); the shipped artifacts by default. The weights
+    are an ``.npz`` checkpoint of either package or a ``.caffemodel``, the
+    mean a ``.npy`` or a ``.binaryproto``. Raises when a named file does
+    not exist, then when ``device`` is a GPU and none is present."""
+    from .models import caffe_import
+
     weights_path = weights_path or default_weights_path()
     mean_path = mean_path or default_mean_path()
-    for path in (weights_path, mean_path):
-        if path.endswith((".caffemodel", ".binaryproto")):
-            raise NotImplementedError(
-                f"{path}: Caffe artifacts are not ported yet (see "
-                "ROADMAP.md); pass an .npz / .npy file")
     for path in (weights_path, mean_path):
         if not os.path.isfile(path):
             raise FileNotFoundError(f"{path}: no such file")
     device = require_device(device)
-    params = params_from_numpy(params_npz_numpy(weights_path), device)
-    mean = torch.from_numpy(np.load(mean_path).astype(np.float32)).to(device)
-    return params, mean
+    if weights_path.endswith(".caffemodel"):
+        arrays = caffe_import.caffemodel_to_params(weights_path)
+    else:
+        arrays = params_npz_numpy(weights_path)
+    if mean_path.endswith(".binaryproto"):
+        mean = caffe_import.read_mean_binaryproto(mean_path)
+    else:
+        mean = np.load(mean_path).astype(np.float32)
+    return params_from_numpy(arrays, device), torch.from_numpy(mean).to(device)
