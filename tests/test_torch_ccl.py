@@ -96,6 +96,31 @@ def test_ccl_twin_on_torch_packing_matches_jax():
         assert np.array_equal(got[s], ref)
 
 
+def test_ccl_twin_bit_exact_past_1024_columns():
+    """A few rows 1100 wide, the width K1 takes its wide kernel for: the
+    twin's labels equal the JAX raster scan's (and the Pallas kernel's, which
+    pads the width to a multiple of 128)."""
+    rng = np.random.default_rng(1100)
+    h, w = 6, 1100
+    ang = (np.arange(w) // 37 * 0.4)[None, :] + rng.normal(0, 0.2, (2, h, w))
+    act = rng.uniform(size=(2, h, w)) < 0.8
+    ux, uy = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    packed = np.asarray(_pack_masks(jnp.asarray(act), jnp.asarray(ux),
+                                    jnp.asarray(uy), COS_TOL))
+    got = tld.connected_components(torch.from_numpy(packed.copy()),
+                                   8).numpy()
+    pallas = np.asarray(connected_components_pallas_batch(
+        jnp.asarray(act), jnp.asarray(ux), jnp.asarray(uy), COS_TOL,
+        passes=8, interpret=True))
+    for s in range(2):
+        ref = np.asarray(jld._connected_components(
+            jnp.asarray(act[s]), jnp.asarray(ux[s]), jnp.asarray(uy[s]),
+            COS_TOL, 8))
+        assert np.array_equal(got[s], ref)
+        assert np.array_equal(got[s], pallas[s])
+    assert len(np.unique(got)) < 0.9 * got.size  # components span pixels
+
+
 def test_connected_components_rejects_unsupported_device():
     packed = torch.zeros((1, 4, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):

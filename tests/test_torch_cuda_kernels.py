@@ -97,13 +97,16 @@ def test_ccl_kernel_bit_exact_on_dataset_grids(cuda, h, w):
     assert torch.equal(got, ld.connected_components_ref(packed, 8))
 
 
-@pytest.mark.parametrize("w", [1, 31, 33, 129, 300, 639, 1024])
+@pytest.mark.parametrize("w", [1, 31, 33, 129, 300, 639, 1024, 1025, 1279,
+                               1919, 2049, 4031])
 @pytest.mark.parametrize("h", [1, 9])
 @pytest.mark.parametrize("kind", ["random", "dense", "all", "none"])
 def test_ccl_kernel_bit_exact_on_planes(cuda, kind, h, w):
     """Lane and warp edges (W = 31, 33: a ragged last lane; 129, 300: a
-    ragged last warp), one column, the widest grid, one row, all-active and
-    all-inactive planes."""
+    ragged last warp), one column, the widest narrow grid, the wide kernel's
+    groups of 1024 columns (1025: one column in the second group; 1279,
+    1919: a 720p and a 1080p gradient grid; 2049, 4031: three and four
+    groups), one row, all-active and all-inactive planes."""
     packed = _plane(kind, 2, h, w).to(cuda)
     got = ld.connected_components_cuda(packed, 8)
     assert torch.equal(got, ld.connected_components_ref(packed, 8))
@@ -176,9 +179,9 @@ def test_sphere_kernel_is_deterministic(cuda):
 
 
 def test_wrappers_reject_bad_inputs(cuda):
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError):  # the kernel's error code: W < 1
         ld.connected_components_cuda(
-            torch.zeros((1, 4, 2000), dtype=torch.int32, device=cuda))
+            torch.zeros((1, 4, 0), dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         ld.connected_components_cuda(
             torch.zeros((1, 4, 4), dtype=torch.int64, device=cuda))

@@ -242,3 +242,37 @@ def test_committed_host_reference_is_current():
     for k in mod.BUNDLED_KEYS:
         np.testing.assert_allclose(fresh[k], committed[k], atol=1e-6,
                                    err_msg=k)
+
+
+def test_horizons_cross_in_float32(capsys):
+    """``Pipeline.horizon_line`` and the benchmark's error loop cross hp1
+    and hp2 in float32, bit for bit ``np.cross`` of the float32 outputs, as
+    the reference crosses them."""
+    from vanishing_points_2017_tpu_torch import benchmark as tbench
+
+    rng = np.random.default_rng(5)
+    hp1, hp2 = (rng.normal(size=(4, 3)).astype(np.float32) for _ in "ab")
+    want = np.cross(hp1, hp2)
+    got = tpipe.Pipeline.horizon_line({"hp1": torch.from_numpy(hp1),
+                                       "hp2": hp2.astype(np.float64)})
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+
+    class Cache:  # the two stages horizon_errors reads
+        def has(self, name, stage):
+            return True
+
+        def load(self, name, stage):
+            i = int(name)
+            if stage == "result":
+                return {"hp1": hp1[i], "hp2": hp2[i].astype(np.float64)}
+            return {"image_shape": (480, 640)}
+
+    true = np.array([0.01, 1.0, 0.02])
+    records = [tds.Record(name=str(i), image_path="", true_horizon=true)
+               for i in range(4)]
+    errors, skipped = tbench.horizon_errors(records, Cache(), "result",
+                                            False)
+    assert skipped == 0 and capsys.readouterr().out.count("max_error:") == 4
+    for i in range(4):
+        assert errors[i] == tio.normalized_horizon_error(want[i], true, 640,
+                                                         480)

@@ -140,8 +140,9 @@ def horizon_errors(records, cache, result_stage: str, device_detect: bool,
         res = cache.load(rec.name, result_stage)
         shape = cache.load(rec.name, "gray" if device_detect
                            else "lines")["image_shape"]
-        est = np.cross(res["hp1"].astype(np.float64),
-                       res["hp2"].astype(np.float64))
+        # crossed in float32, as the reference crosses them
+        est = np.cross(res["hp1"].astype(np.float32),
+                       res["hp2"].astype(np.float32))
         err = normalized_horizon_error(est, rec.true_horizon,
                                        width=int(shape[1]),
                                        height=int(shape[0]))

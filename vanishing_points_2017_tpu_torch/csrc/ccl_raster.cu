@@ -43,6 +43,20 @@
 // cost more issue slots than it saved). Output rows are staged in shared
 // memory at an odd pitch per lane (a lane's contiguous columns hit
 // distinct banks) and written coalesced.
+//
+// Grids wider than 1024 columns (8 columns per lane would spill past 8)
+// take a second kernel, ccl_half_pass_wide: the same block of 4 warps
+// walks a row in groups of 1024 columns, 8 per lane. A row step makes a
+// forward sweep over the groups (left to right: inject, forward lane and
+// warp scans, the carry of the groups to the left folded in; the forward
+// minima are stored in the output row) and a backward sweep (right to
+// left: the injection recomputed, backward scans, the carry of the groups
+// to the right, the final min with the stored forward value). The carry
+// between groups is a register every thread folds alike, so any width
+// runs with the same shared memory. The previous row is read back from
+// the output after a barrier, not kept in registers. Each group costs a
+// barrier and a load round trip, so the wide kernel is slower per column
+// than the narrow one; the main path's 639 columns never take it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,7 +65,7 @@ namespace {
 
 constexpr int kMax = 0x7fffffff;
 constexpr int kWarps = 4;
-constexpr int kMaxCols = 8;  // columns per lane: W <= 32 * kWarps * 8
+constexpr int kMaxCols = 8;  // columns per lane of the narrow kernel
 constexpr int kMaxWidth = 32 * kWarps * kMaxCols;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -244,16 +258,184 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
+// a half pass over grids of any width: one block of kWarps warps per
+// image walks each row in groups of kGroup columns, 8 contiguous columns per
+// lane, a forward sweep over the groups then a backward one (see the top
+// of the file); `in` as for ccl_half_pass, `out` also holds the previous
+// row and the current row's forward minima
+template <int MODE>
+__global__ void __launch_bounds__(32 * kWarps)
+    ccl_half_pass_wide(const int32_t* __restrict__ packed,
+                       const int32_t* __restrict__ in,
+                       int32_t* __restrict__ out, int H, int W) {
+  constexpr int C = kMaxCols;
+  constexpr int kGroup = kMaxWidth;  // columns per group
+  constexpr bool kFirst = MODE == kFirstPass, kAsc = MODE == kAscending;
+  constexpr int kUpl = kAsc ? 1 << 5 : 1 << 0;
+  constexpr int kUp = kAsc ? 1 << 6 : 1 << 1;
+  constexpr int kUpr = kAsc ? 1 << 7 : 1 << 2;
+  constexpr uint32_t kAll = (1u << C) - 1;
+  // warp summaries, double-buffered by group parity: a buffer is written
+  // again only after the next group's barrier, when every thread has read it
+  __shared__ int32_t s_sum[2][kWarps][2];
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int lx = w * 32 * C + lane * C;  // this lane's first column in a group
+  const size_t img = (size_t)blockIdx.x * H * W;
+  const int32_t* pk = packed + img;
+  const int32_t* lin = in + img;
+  int32_t* lab = out + img;
+  const int groups = (W + kGroup - 1) / kGroup;
+  const int o0 = kAsc ? (H - 1) * W : 0, dy = kAsc ? -W : W;
+  int par = 0;
+
+  // row offset o, previous row's offset po (none at s = 0), group g:
+  // the mask bits and the labels after the injection of the previous row
+  auto inject = [&](int o, int po, bool has_prev, int g, int32_t (&mk)[C],
+                    int32_t (&v)[C]) {
+    const int x0 = g * kGroup + lx;
+    int32_t pv[C + 2];
+#pragma unroll
+    for (int k = 0; k < C + 2; ++k) {
+      const int x = x0 + k - 1;
+      pv[k] = has_prev && x >= 0 && x < W ? lab[po + x] : kMax;
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int x = x0 + k;
+      mk[k] = 0;
+      v[k] = kMax;
+      if (x < W) {
+        mk[k] = __ldg(pk + o + x);
+        v[k] = kFirst ? o + x : __ldg(lin + o + x);
+      }
+      v[k] = min(min(v[k], (mk[k] & kUp) ? pv[k + 1] : kMax),
+                 min((mk[k] & kUpl) ? pv[k] : kMax,
+                     (mk[k] & kUpr) ? pv[k + 2] : kMax));
+    }
+  };
+
+  for (int s = 0; s < H; ++s) {
+    const int o = o0 + s * dy, po = o - dy;
+    __syncthreads();  // the previous row is written
+    int32_t carry = kMax;  // from the groups to the left
+    for (int g = 0; g < groups; ++g) {
+      int32_t mk[C], v[C], f[C];
+      inject(o, po, s > 0, g, mk, v);
+      uint32_t wb = 0;
+      int32_t acc = kMax;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        acc = min(v[k], (mk[k] & kW) ? acc : kMax);
+        f[k] = acc;
+        wb |= (mk[k] & kW) ? 1u << k : 0u;
+      }
+      const uint32_t fpre = wb & ~(wb + 1);
+      int32_t fv = f[C - 1];
+      int ff = (fpre >> (C - 1)) & 1;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t fs = __shfl_up_sync(kFull, fv, d);
+        const int ffs = __shfl_up_sync(kFull, ff, d);
+        if (lane >= d) {
+          fv = min(fv, ff ? fs : kMax);
+          ff &= ffs;
+        }
+      }
+      if (lane == 31) { s_sum[par][w][0] = fv; s_sum[par][w][1] = ff; }
+      int32_t fin = __shfl_up_sync(kFull, fv, 1);
+      const int finf = __shfl_up_sync(kFull, ff, 1);
+      __syncthreads();  // the warp summaries are published
+      int32_t wf = carry;
+#pragma unroll
+      for (int u = 0; u < kWarps; ++u) {
+        const int32_t next = min(s_sum[par][u][0], s_sum[par][u][1] ? carry
+                                                                    : kMax);
+        if (u < w) wf = next;
+        carry = next;
+      }
+      fin = lane == 0 ? wf : min(fin, finf ? wf : kMax);
+      const int x0 = g * kGroup + lx;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        if (x0 + k < W)
+          lab[o + x0 + k] = min(f[k], (fpre >> k) & 1 ? fin : kMax);
+      }
+      par ^= 1;
+    }
+    carry = kMax;  // from the groups to the right
+    for (int g = groups - 1; g >= 0; --g) {
+      int32_t mk[C], v[C], b[C];
+      inject(o, po, s > 0, g, mk, v);
+      uint32_t eb = 0;
+      int32_t acc = kMax;
+#pragma unroll
+      for (int k = C - 1; k >= 0; --k) {
+        acc = min(v[k], (mk[k] & kE) ? acc : kMax);
+        b[k] = acc;
+        eb |= (mk[k] & kE) ? 1u << k : 0u;
+      }
+      const uint32_t ez = ~eb & kAll;
+      const uint32_t bpre = ez ? kAll & ~((2u << (31 - __clz(ez))) - 1)
+                               : kAll;
+      int32_t bv = b[0];
+      int bf = bpre & 1;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t bs = __shfl_down_sync(kFull, bv, d);
+        const int bfs = __shfl_down_sync(kFull, bf, d);
+        if (lane + d < 32) {
+          bv = min(bv, bf ? bs : kMax);
+          bf &= bfs;
+        }
+      }
+      if (lane == 0) { s_sum[par][w][0] = bv; s_sum[par][w][1] = bf; }
+      int32_t bin = __shfl_down_sync(kFull, bv, 1);
+      const int binf = __shfl_down_sync(kFull, bf, 1);
+      __syncthreads();  // the warp summaries are published
+      int32_t wbk = carry;
+#pragma unroll
+      for (int r = kWarps - 1; r >= 0; --r) {
+        const int32_t next = min(s_sum[par][r][0], s_sum[par][r][1] ? carry
+                                                                    : kMax);
+        if (r > w) wbk = next;
+        carry = next;
+      }
+      bin = lane == 31 ? wbk : min(bin, binf ? wbk : kMax);
+      const int x0 = g * kGroup + lx;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        if (x0 + k < W)  // the forward minimum this thread stored above
+          lab[o + x0 + k] = min(min(lab[o + x0 + k], b[k]),
+                                (bpre >> k) & 1 ? bin : kMax);
+      }
+      par ^= 1;
+    }
+  }
+}
+
 // one launch per half pass, so that every launch reads labels that are
 // read-only for it, ping-ponging between `scratch` and `labels` and ending
 // in `labels`
+// (C = 0 takes the wide kernel)
 template <int C>
 cudaError_t launch(const int32_t* packed, int32_t* labels, int32_t* scratch,
                    int B, int H, int W, int passes, cudaStream_t st) {
   for (int p = 0; p < passes; ++p) {
     int32_t* dst = (passes - 1 - p) % 2 ? scratch : labels;
     const int32_t* src = dst == labels ? scratch : labels;
-    if (p == 0) {
+    if constexpr (C == 0) {
+      if (p == 0) {
+        ccl_half_pass_wide<kFirstPass><<<B, 32 * kWarps, 0, st>>>(
+            packed, src, dst, H, W);
+      } else if (p & 1) {
+        ccl_half_pass_wide<kAscending><<<B, 32 * kWarps, 0, st>>>(
+            packed, src, dst, H, W);
+      } else {
+        ccl_half_pass_wide<kDescending><<<B, 32 * kWarps, 0, st>>>(
+            packed, src, dst, H, W);
+      }
+    } else if (p == 0) {
       ccl_half_pass<C, kFirstPass><<<B, 32 * kWarps, 0, st>>>(
           packed, src, dst, H, W);
     } else if (p & 1) {
@@ -279,11 +461,15 @@ const char* kernel_error_string(int code) {
 
 // packed (B, H, W) int32 edge bit-plane, labels (B, H, W) int32 output,
 // scratch (B, H, W) int32; contiguous on the launching device. Requires
-// 1 <= W <= 1024.
+// W >= 1 and H * W < 2^31 (labels are flat int32 indices).
 int ccl_raster_launch(const int32_t* packed, int32_t* labels,
                       int32_t* scratch, int B, int H, int W, int passes,
                       void* stream) {
-  if (W < 1 || W > kMaxWidth) return (int)cudaErrorInvalidValue;
+  if (W < 1 || H < 0 || (long long)H * W > kMax)
+    return (int)cudaErrorInvalidValue;
+  if (W > kMaxWidth)
+    return (int)launch<0>(packed, labels, scratch, B, H, W, passes,
+                          (cudaStream_t)stream);
   using Launch = cudaError_t (*)(const int32_t*, int32_t*, int32_t*, int,
                                  int, int, int, cudaStream_t);
   const Launch by_cols[kMaxCols] = {launch<1>, launch<2>, launch<3>,

@@ -1,12 +1,23 @@
-"""Host LSD line-segment detector: a ctypes binding of the repository's one
-C++ LSD source, ``vanishing_points_2017_tpu/lsd/lsd.cpp``.
+"""Host LSD line-segment detector: a ctypes binding of the port's copy of
+the repository's C++ LSD, ``csrc/lsd.cpp`` (byte for byte the JAX
+package's ``lsd/lsd.cpp``).
 
-The source is compiled by its path (nothing of the JAX package is
-imported, and the file is not copied) with g++ and the JAX binding's flags,
-so both packages give identical segments on one machine. The library goes
-into ``build/lsd/`` of the checkout under a name hashed from the source
-and the flags, as ``kernels.py`` names the CUDA libraries; nothing is
-written beside the JAX package's source. The build runs at first use.
+The source is compiled with g++ and the JAX binding's flags (``-O3
+-march=native``), so both packages give identical segments on one
+machine. The library goes into ``build/lsd/`` of the checkout under a name
+hashed from the source, the flags and the host CPU (``hostbuild.py``), so a
+``build/`` carried to another machine rebuilds. The build runs at first
+use.
+
+The segments depend on the host, as the reference's do: ``-march=native``
+lets g++ contract multiply-adds into FMA instructions where the CPU has
+them. On an Intel Xeon with FMA (g++ 12.2, ``scripts/compare_lsd_flags.py``)
+the four bundled scenes gave 265 against 264 segments on scene 0 with and
+without ``-ffp-contract=off``, and the same counts with endpoints within
+3.4e-13 px on scenes 1-3; ``-march=native -ffp-contract=off``, plain
+``-O3`` and ``-O3 -ffp-contract=off`` gave identical segments. Portable
+flags would therefore part the port from the JAX binding on any FMA host;
+the flags stay the reference's, and the library's name follows the CPU.
 
 ``detect_line_segments(image)`` takes a 2-D grayscale image in [0, 255]
 and returns (N, 7) float64 columns x1, y1, x2, y2, width, precision,
@@ -23,9 +34,9 @@ import numpy as np
 
 from . import hostbuild
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_ROOT, "vanishing_points_2017_tpu", "lsd", "lsd.cpp")
-BUILD_DIR = os.path.join(_ROOT, "build", "lsd")
+_PKG = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_PKG, "csrc", "lsd.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "lsd")
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()

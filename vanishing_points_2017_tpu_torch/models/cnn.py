@@ -140,13 +140,13 @@ class VPNet(nn.Module):
         return {name: dict(layer.named_parameters())
                 for name, layer in self.layers.items()}
 
-    def logits(self, x: torch.Tensor, keep=None) -> torch.Tensor:
-        """fc8 logits (B, 20, 20) of the whole batch, unchunked, with
-        autograd when the caller's mode allows it; the caller runs it (and
-        a backward pass) under :meth:`numerics`. Training (JAX
-        ``forward(train=True, logits=True)``) passes ``keep``: the dropout
-        keep masks after fc6 and fc7, bool (B, width) each, kept units
-        scaled by 2; ``None`` applies no dropout."""
+    def fc_widths(self) -> list:
+        """The widths of fc6 and fc7, those of their dropout masks."""
+        return [self.layers[n].b.shape[0] for n in ("fc6", "fc7")]
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution stack: (B, 1, S, S) -> fc6's input (B, 256 *
+        side^2), flattened in NCHW order (Caffe's)."""
         cd = self.compute_dtype
         h = x
         for name, _o, _k, stride, pad, groups, _b, _s in CONV_SPECS:
@@ -157,7 +157,17 @@ class VPNet(nn.Module):
             if name in ("conv1", "conv2"):
                 h = caffe_max_pool(lrn_across_channels(h))
         h = caffe_max_pool(h)
-        h = h.reshape(h.shape[0], -1)  # NCHW flatten = Caffe's order
+        return h.reshape(h.shape[0], -1)
+
+    def logits(self, x: torch.Tensor, keep=None) -> torch.Tensor:
+        """fc8 logits (B, 20, 20) of the whole batch, unchunked, with
+        autograd when the caller's mode allows it; the caller runs it (and
+        a backward pass) under :meth:`numerics`. Training (JAX
+        ``forward(train=True, logits=True)``) passes ``keep``: the dropout
+        keep masks after fc6 and fc7, bool (B, width) each, kept units
+        scaled by 2; ``None`` applies no dropout."""
+        cd = self.compute_dtype
+        h = self.features(x)
         for i, (name, *_) in enumerate(FC_SPECS):
             p = self.layers[name]
             hc = h.to(cd)

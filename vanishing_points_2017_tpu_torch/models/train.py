@@ -15,6 +15,15 @@ The network trains in bfloat16 products with float32 parameters, as the
 JAX step does. Training batches are synthetic: scenes and labels from
 ``models/synth.py`` on the host, images rendered by ``ops/sphere`` (the
 CUDA kernel K2 on a GPU).
+
+On a dp x tp mesh (``parallel/mesh.py``; the JAX step is the same program
+under a ``Mesh``) a state made with ``init_state(..., mesh=)`` holds this
+rank's shards of fc6/fc7 and of their momentum, and ``train_step(...,
+mesh=)`` takes this rank's dp slice of the batch: the dropout masks are
+drawn for the global batch and sliced, the fc layers run split over tp
+(``parallel/tp.py``), and the gradients and the loss are averaged over dp
+with one all-reduce before Caffe's update, so a step equals the
+single-process step on the whole batch.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import torch
 
 from ..device import require_device
 from ..ops import sphere as sph
+from ..parallel import mesh as pmesh
+from ..parallel import tp as ptp
 from . import cnn, synth
 
 BASE_LR = 1e-4
@@ -48,11 +59,18 @@ class TrainState:
 
 
 def init_state(params: dict, step: int = 0, base_lr: float = BASE_LR,
-               lr_stepsize: int = LR_STEPSIZE) -> TrainState:
+               lr_stepsize: int = LR_STEPSIZE,
+               mesh: pmesh.Mesh | None = None) -> TrainState:
     """A state that trains a copy of ``params`` (this port's layout) from
-    ``step`` with zero momentum, in bfloat16 products."""
-    model = cnn.VPNet({n: {k: v.detach().clone() for k, v in d.items()}
-                       for n, d in params.items()}, torch.bfloat16)
+    ``step`` with zero momentum, in bfloat16 products; with ``mesh``, of
+    this rank's shards of them (``mesh.param_spec``)."""
+    params = {n: {k: v.detach().clone() for k, v in d.items()}
+              for n, d in params.items()}
+    if mesh is None:
+        model = cnn.VPNet(params, torch.bfloat16)
+    else:
+        model = ptp.TPVPNet(pmesh.shard_params(params, mesh), mesh,
+                            torch.bfloat16)
     momentum = {n: {k: torch.zeros_like(v) for k, v in d.items()}
                 for n, d in model.params().items()}
     return TrainState(model, momentum, step, base_lr, lr_stepsize)
@@ -111,36 +129,50 @@ def dropout_masks(model: cnn.VPNet, batch: int,
     """Keep masks for fc6 and fc7, bool (batch, width), each unit kept with
     probability ``KEEP_PROB``, drawn from ``generator`` on its device."""
     dev = generator.device
-    return [torch.rand((batch, model.layers[name].b.shape[0]),
-                       generator=generator, device=dev) < KEEP_PROB
-            for name in ("fc6", "fc7")]
+    return [torch.rand((batch, width), generator=generator, device=dev)
+            < KEEP_PROB for width in model.fc_widths()]
 
 
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                generator: torch.Generator | None = None,
-               keep: list | None = None) -> torch.Tensor:
+               keep: list | None = None,
+               mesh: pmesh.Mesh | None = None) -> torch.Tensor:
     """One Caffe-SGD step, in place on ``state``; returns the loss (a
     float32 scalar tensor, before the update).
 
     images: (B, 1, S, S) mean-subtracted; labels: (B, 20, 20) in [0, 1].
     The dropout masks are drawn from ``generator``, or given as ``keep``
-    (fc6's and fc7's, bool (B, width))."""
+    (fc6's and fc7's, bool (B, width)). With ``mesh`` (the one the state
+    was made with), images and labels are this rank's dp slice, the masks
+    are the global batch's, and the loss returned is the global batch's."""
+    dp = 1 if mesh is None else mesh.dp
     if keep is None:
         if generator is None:
             raise ValueError("train_step: pass a generator or keep masks")
-        keep = dropout_masks(state.model, images.shape[0], generator)
+        keep = dropout_masks(state.model, images.shape[0] * dp, generator)
+    if mesh is not None:
+        keep = ptp.local_keep(keep, mesh)
     params = state.model.params()
     names = [(n, k) for n, d in params.items() for k in d]
     with state.model.numerics():
         loss = sigmoid_xent(state.model.logits(images, keep), labels)
         flat = torch.autograd.grad(loss, [params[n][k] for n, k in names])
+    loss = loss.detach()
+    if mesh is not None and mesh.dp_group is not None:
+        # one all-reduce of every gradient and the loss: their dp means
+        buf = pmesh.all_reduce(torch.cat([g.reshape(-1) for g in flat]
+                                         + [loss.reshape(1)]),
+                               mesh.dp_group) / dp
+        flat = [b.view_as(g) for b, g in zip(
+            torch.split(buf, [g.numel() for g in flat] + [1]), flat)]
+        loss = buf[-1]
     grads: dict = {}
     for (n, k), g in zip(names, flat):
         grads.setdefault(n, {})[k] = g
     sgd_update(params, grads, state.momentum, state.step, state.base_lr,
                state.lr_stepsize)
     state.step += 1
-    return loss.detach()
+    return loss
 
 
 def make_batch(rng_np: np.random.Generator, batch: int,

@@ -23,6 +23,19 @@ def _t(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
+def _rows(x: torch.Tensor, rows: tuple | None) -> torch.Tensor:
+    """Rows ``rows = (r0, r1)`` of the segment axis (all when None)."""
+    return x if rows is None else x[..., rows[0]:rows[1], :]
+
+
+def _diagonal(n: int, rows: tuple | None, device) -> torch.Tensor:
+    """(R, N) bool, true where row r0 + i meets column i: the diagonal of
+    the (N, N) matrix restricted to ``rows``."""
+    r0, r1 = (0, n) if rows is None else rows
+    return (torch.arange(r0, r1, device=device)[:, None]
+            == torch.arange(n, device=device)[None, :])
+
+
 def line_length(lp: torch.Tensor) -> torch.Tensor:
     """(..., 4) segments -> (...,) Euclidean endpoint distance."""
     d = lp[..., 0:2] - lp[..., 2:4]
@@ -38,15 +51,18 @@ def lines_angles(lp: torch.Tensor) -> torch.Tensor:
     return torch.where(phi > PI / 2, PI - phi, phi)
 
 
-def pairwise_cosangle(lp: torch.Tensor, f: float = 1.0) -> torch.Tensor:
+def pairwise_cosangle(lp: torch.Tensor, f: float = 1.0,
+                      rows: tuple | None = None) -> torch.Tensor:
     """(..., N, 4) -> (..., N, N) sharpened |cos| of the direction angle,
-    cos(clip(f * dphi, -pi/2, pi/2)), dphi from atan2(|cross|, |dot|)."""
+    cos(clip(f * dphi, -pi/2, pi/2)), dphi from atan2(|cross|, |dot|).
+    With ``rows = (r0, r1)``, only those rows: (..., r1 - r0, N)."""
     v = lp[..., 0:2] - lp[..., 2:4]
     n = torch.linalg.vector_norm(v, dim=-1)
     vn = v / torch.where(n == 0, 1.0, n)[..., None]
-    dot = torch.abs(vn @ _t(vn))
-    cross = torch.abs(vn[..., :, None, 0] * vn[..., None, :, 1]
-                      - vn[..., :, None, 1] * vn[..., None, :, 0])
+    vr = _rows(vn, rows)
+    dot = torch.abs(vr @ _t(vn))
+    cross = torch.abs(vr[..., :, None, 0] * vn[..., None, :, 1]
+                      - vr[..., :, None, 1] * vn[..., None, :, 0])
     dphi = torch.atan2(cross, dot)
     return torch.cos(torch.clamp(f * dphi, -PI / 2, PI / 2))
 
@@ -62,41 +78,48 @@ def segment_point_distance(lp: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(closest - p, dim=-1)
 
 
-def pairwise_closest_distance(lp: torch.Tensor) -> torch.Tensor:
+def pairwise_closest_distance(lp: torch.Tensor,
+                              rows: tuple | None = None) -> torch.Tensor:
     """(..., N, 4) -> (..., N, N) min endpoint-to-other-segment distance,
-    diagonal = SELF_DIST."""
-    n = lp.shape[-2]
-    p1 = lp[..., None, :, 0:2]
-    p2 = lp[..., None, :, 2:4]
-    seg = lp[..., :, None, :]
-    d1 = segment_point_distance(seg, p1)  # (..., N_seg, N_pt)
-    d2 = segment_point_distance(seg, p2)
-    d = torch.minimum(torch.minimum(d1, d2), torch.minimum(_t(d1), _t(d2)))
-    eye = torch.eye(n, dtype=torch.bool, device=lp.device)
-    return torch.where(eye, SELF_DIST, d)
+    diagonal = SELF_DIST; with ``rows = (r0, r1)``, only those rows."""
+    lr = _rows(lp, rows)
+    seg = lr[..., :, None, :]
+    d1 = segment_point_distance(seg, lp[..., None, :, 0:2])  # (.., R, N)
+    d2 = segment_point_distance(seg, lp[..., None, :, 2:4])
+    if rows is None:
+        d3, d4 = _t(d1), _t(d2)
+    else:  # the columns' segments against the rows' endpoints
+        d3 = segment_point_distance(lp[..., None, :, :], lr[..., :, None, 0:2])
+        d4 = segment_point_distance(lp[..., None, :, :], lr[..., :, None, 2:4])
+    d = torch.minimum(torch.minimum(d1, d2), torch.minimum(d3, d4))
+    return torch.where(_diagonal(lp.shape[-2], rows, lp.device), SELF_DIST, d)
 
 
 def pairwise_proximity(lp: torch.Tensor, sigma: float = 0.1,
-                       dist: torch.Tensor | None = None) -> torch.Tensor:
-    """(..., N, N) exp(-d^2 / (2 s^2)), s = sigma * min(len_i, len_j)."""
+                       dist: torch.Tensor | None = None,
+                       rows: tuple | None = None) -> torch.Tensor:
+    """(..., N, N) exp(-d^2 / (2 s^2)), s = sigma * min(len_i, len_j);
+    with ``rows = (r0, r1)``, only those rows."""
     if dist is None:
-        dist = pairwise_closest_distance(lp)
+        dist = pairwise_closest_distance(lp, rows)
     ll = line_length(lp)
-    s = sigma * torch.minimum(ll[..., :, None], ll[..., None, :])
+    lr = ll if rows is None else ll[..., rows[0]:rows[1]]
+    s = sigma * torch.minimum(lr[..., :, None], ll[..., None, :])
     s2 = torch.where(s == 0, 1.0, 2.0 * s * s)
     prox = torch.exp(-(dist * dist) / s2)
     return torch.where(s == 0, 0.0, prox)
 
 
-def calc_lsim(lp: torch.Tensor, mask: torch.Tensor,
-              sigma: float = 0.1) -> torch.Tensor:
+def calc_lsim(lp: torch.Tensor, mask: torch.Tensor, sigma: float = 0.1,
+              rows: tuple | None = None) -> torch.Tensor:
     """Masked (..., N, N) line similarity: cosangle(f=9) * proximity,
-    zero diagonal, zero rows/columns for invalid lines."""
-    n = lp.shape[-2]
-    sim = pairwise_cosangle(lp, f=9.0) * pairwise_proximity(lp, sigma)
-    eye = torch.eye(n, dtype=torch.bool, device=lp.device)
-    sim = torch.where(eye, 0.0, sim)
-    m2 = mask[..., :, None] & mask[..., None, :]
+    zero diagonal, zero rows/columns for invalid lines. With ``rows = (r0,
+    r1)``, the row strip (..., r1 - r0, N) of that matrix."""
+    sim = (pairwise_cosangle(lp, f=9.0, rows=rows)
+           * pairwise_proximity(lp, sigma, rows=rows))
+    sim = torch.where(_diagonal(lp.shape[-2], rows, lp.device), 0.0, sim)
+    mr = mask if rows is None else mask[..., rows[0]:rows[1]]
+    m2 = mr[..., :, None] & mask[..., None, :]
     return torch.where(m2, sim, 0.0)
 
 

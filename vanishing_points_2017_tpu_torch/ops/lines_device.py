@@ -181,10 +181,6 @@ def connected_components_cuda(packed: torch.Tensor,
         raise ValueError(f"connected_components_cuda: tensor on {dev}")
     b, h, w = packed.shape
     kernels.require(packed, "packed", torch.int32, (b, h, w), dev)
-    if not 1 <= w <= 1024:
-        raise ValueError(f"connected_components_cuda: width {w} outside "
-                         "[1, 1024] (128 threads per image, at most 8 "
-                         "columns each)")
     if h * w >= I32_MAX:
         raise ValueError("connected_components_cuda: image too large")
     labels = torch.empty((b, h, w), dtype=torch.int32, device=dev)

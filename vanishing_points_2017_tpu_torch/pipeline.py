@@ -291,7 +291,8 @@ class Pipeline:
 
     @staticmethod
     def horizon_line(out: dict) -> np.ndarray:
-        """hp1 x hp2 in float64, from tensor or numpy outputs."""
-        hp1, hp2 = (torch.as_tensor(out[k]).cpu().double().numpy()
+        """hp1 x hp2 crossed in float32, as the reference crosses them,
+        from tensor or numpy outputs."""
+        hp1, hp2 = (torch.as_tensor(out[k]).cpu().float().numpy()
                     for k in ("hp1", "hp2"))
         return np.cross(hp1, hp2)

@@ -1,6 +1,6 @@
 """CNN parameter and mean-image loading (numpy only).
 
-Counterpart of ``vanishing_points_2017_tpu/weights.py``: the shipped
+Counterpart of the JAX package's ``weights.py``: the shipped
 artifact is ``assets/weights_compact.npz`` (float16 storage, conv weights
 in HWIO, fc6/fc7 factorized as rank-256 ``u``/``v`` pairs) plus
 ``assets/mean.npy``; Caffe's ``.caffemodel`` and ``.binaryproto`` load
