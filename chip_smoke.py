@@ -47,6 +47,13 @@ GPU) is what runs:
 * K1's wide kernel (grids past 1024 columns): bit-exact on random planes
   1025-4031 wide and on 720p / 1080p gradient grids (timed), and a
   1280x720 frame through ``process_images``;
+* the throughput bench (``python -m vanishing_points_2017_tpu_torch.bench``)
+  through its measurement at b32 / 640x640 on its synthetic scenes (8
+  batches a loop, 3 repeats): the record's keys, platform and card; the
+  pipelined, serial and compute-only loops' horizons bit-identical to each
+  other and to ``Pipeline.process_images`` on the same images, at most 2
+  of 32 beyond 0.02 of JAX's on the same scenes
+  (``assets/examples/jax_reference_bench.npz``), both kernels launched;
 * ``parallel/``: ranks spawned over gloo that share the card run sharded
   serving on the scenes tiled to b32 at (dp, tp) = (2, 1) (every output
   equal to the single-process run's), (1, 2) and (2, 2) (CNN grid within
@@ -67,6 +74,7 @@ every path (comparison launches excluded; the drivers' as they report
 them), ``launches_per_batch`` is the main path's count for its one batch,
 ``launches_per_train_step`` the dense training run's count over its
 steps, ``launches_sharded`` the sharded serving runs' (all ranks),
+``launches_bench`` the bench phase's (every loop, warm-up and stage pass),
 K1's ``ms_by_wide_grid`` its time at B = 4 on 720p and 1080p gradient
 grids, and ``bound_ms`` is the least time
 the card could take for the timed call's work (bytes over the memory
@@ -100,6 +108,8 @@ TRAIN_REFERENCE = os.path.join(ROOT, "assets", "examples",
                                "jax_reference_train.npz")
 MINI_REFERENCE = os.path.join(ROOT, "assets", "examples",
                               "jax_reference_minisets.npz")
+BENCH_REFERENCE = os.path.join(ROOT, "assets", "examples",
+                               "jax_reference_bench.npz")
 HORIZON_TOL = 0.02      # normalized horizon error vs the JAX reference
 AUC_TOL = 0.02          # the repo's AUC parity gate (BASELINE.md)
 K2_ATOL = 1e-4          # float image; only the f32 sum order differs
@@ -115,6 +125,17 @@ MINI_N_EVAL, MINI_BATCH, MINI_MAX_FAR = 8, 4, 1
 # run -> (data set, its name in data.datasets.DATASETS, --device_detect)
 MINI_RUNS = {"yud": ("yud", "york", False), "ecd": ("ecd", "eurasian", False),
              "hlw": ("hlw", "horizon", False), "yud_dev": ("yud", "york", True)}
+# the bench phase: batches per loop, repeats, and how many of its 32
+# horizons may lie beyond HORIZON_TOL of JAX's (the synthetic protocol's
+# knife-edge allowance)
+BENCH_ITERS, BENCH_REPEATS, BENCH_MAX_FAR = 8, 3, 2
+# what the bench record must hold, beside the JAX record's own keys
+BENCH_KEYS = ("serial_images_per_sec", "compute_images_per_sec",
+              "fused_device_images_per_sec", "host_lsd_ms_per_image",
+              "flops_per_image", "mfu_estimate", "power_limit", "stage_ms",
+              "em_host_syncs", "device_idle_share", "top_kernels",
+              "launches_per_batch", "spread", "first_call_s",
+              "kernel_build_s")
 # training parity with JAX's two steps: the CPU tests' gates
 # (tests/test_torch_train_grads.py), but for the second bfloat16 loss. It
 # follows the first step's bf16 update and moves with where the bf16
@@ -900,6 +921,66 @@ def wide_grid_phase(dev, card: str, pipe, kernels_all, total: dict,
     return times
 
 
+def bench_phase(card: str, pipe, kernels_all, total: dict) -> dict:
+    """The bench's measurement at b32 / 640x640 on the card; -> its
+    launches per kernel source. Runs every check and logs before the phase
+    fails on the first that did not hold."""
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch import bench
+
+    reset(kernels_all)
+    record, horizons = bench.measure(batch=BATCH, iters=BENCH_ITERS,
+                                     size=640, repeats=BENCH_REPEATS,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    launches = {k.source: k.launches for k in kernels_all}
+    count(kernels_all, total, "bench", need=kernels_all)
+    log(f"bench record: {json.dumps(record)}")
+    failed: list = []
+    check = checker(failed)
+    bd = record["breakdown"]
+    check({"metric", "value", "unit", "vs_baseline", "breakdown"}
+          <= set(record) and set(BENCH_KEYS) <= set(bd),
+          "bench record: keys missing")
+    check(bd.get("platform") == "gpu" and not record.get("degraded"),
+          f"bench record: platform {bd.get('platform')}")
+    check(bd.get("device") == torch.cuda.get_device_name(0),
+          f"bench record: device {bd.get('device')}")
+    check(record.get("value", 0) > 0 and bd.get("mfu_estimate") is not None,
+          "bench record: no throughput or MFU")
+    check(all(n >= 1 for n in bd.get("launches_per_batch", {}).values())
+          and len(bd.get("launches_per_batch", {})) == len(kernels_all),
+          f"bench record: launches per batch {bd.get('launches_per_batch')}")
+    imgs = bench.make_inputs(BATCH, 640, pipe.cfg.n_pad)[0]
+    ref = pipe.process_images(list(imgs))
+    ref = tuple(ref[k].cpu().numpy() for k in ("hp1", "hp2"))
+    for loop in ("pipelined", "serial", "compute"):
+        check(all(np.array_equal(h, r) for h, r in zip(horizons[loop], ref)),
+              f"bench {loop} loop: horizons differ from process_images")
+    jax_ref = np.load(BENCH_REFERENCE)
+    errs = [horizon_err(ref[0][i], ref[1][i], jax_ref["hp1"][i],
+                        jax_ref["hp2"][i]) for i in range(BATCH)]
+    far = [i for i, e in enumerate(errs) if e > HORIZON_TOL]
+    log(f"bench scenes: {len(far)} of {BATCH} horizons beyond {HORIZON_TOL} "
+        f"of JAX's ({far}; worst {max(errs):.5f})")
+    check(len(far) <= BENCH_MAX_FAR, f"bench scenes: {len(far)} horizons "
+          "beyond the gate")
+    spread = bd["spread"]
+    log(f"bench b{BATCH}/640^2 ({card}): pipelined {record['value']:.2f} "
+        f"img/s (min {spread['pipelined']['min']:.2f}, max "
+        f"{spread['pipelined']['max']:.2f}), serial "
+        f"{bd['serial_images_per_sec']:.2f}, compute-only "
+        f"{bd['compute_images_per_sec']:.2f}, fused on lines "
+        f"{bd['fused_device_images_per_sec']:.2f}; MFU "
+        f"{bd['mfu_estimate']} at {bd['flops_per_image']} FLOP/img; "
+        f"idle share {bd['device_idle_share']}")
+    if failed:
+        raise AssertionError(f"bench phase: {failed}")
+    return launches
+
+
 def _rank_setup(init_method: str):
     """A rank of the parallel phase: gloo over the shared card, the kernels
     loaded from the builds under build/, the shipped weights, and the four
@@ -1487,6 +1568,11 @@ def main() -> int:
             raise AssertionError(f"synthetic {path}: {len(far)} horizons "
                                  "beyond the gate")
 
+    # ---- the throughput bench: its loops at b32 / 640^2
+    t0 = time.perf_counter()
+    per_bench = bench_phase(card, pipe, kernels_all, total)
+    log(f"bench phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- the training path: parity with JAX, dense and compact training
     # at b32, and the two drivers
     t0 = time.perf_counter()
@@ -1524,6 +1610,7 @@ def main() -> int:
              launches_per_batch=per_batch[ccl_k.source],
              launches_per_train_step=per_step[ccl_k.source],
              launches_sharded=per_sharded[ccl_k.source],
+             launches_bench=per_bench[ccl_k.source],
              ms_by_wide_grid={g: t[0] for g, t in wide_ms.items()},
              library_ms=None, **records["ccl_raster"]),
         dict(name="sphere_render", route="cuda",
@@ -1533,6 +1620,7 @@ def main() -> int:
              launches_per_batch=per_batch[sph_k.source],
              launches_per_train_step=per_step[sph_k.source],
              launches_sharded=per_sharded[sph_k.source],
+             launches_bench=per_bench[sph_k.source],
              library_ms=None, **records["sphere_render"]),
     ]
     for k in kernel_info:

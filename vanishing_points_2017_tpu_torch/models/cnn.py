@@ -21,6 +21,7 @@ training calls :meth:`VPNet.logits` with dropout masks
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -56,6 +57,29 @@ def pool5_side(input_size: int = INPUT_SIZE) -> int:
     """500 -> conv1/4 -> 123 -> pool -> 61 -> pool -> 30 -> pool5 -> 15."""
     c1 = (input_size - 11) // 4 + 1
     return _ceil_pool(_ceil_pool(_ceil_pool(c1)))
+
+
+def flops_per_image(params: dict, input_size: int = INPUT_SIZE) -> int:
+    """The network's floating-point operations per image, 2 per
+    multiply-add, from the parameters' shapes (this port's layout, tensors
+    or arrays): every conv over full windows (the taps on padding
+    included, grouped convs by their (in / groups) weights) and every fc
+    product (``x @ w``, or ``x @ u`` and ``@ v`` for a factorized layer).
+    Pooling, LRN, biases and activations are not counted."""
+    def size(a) -> int:
+        return math.prod(a.shape)
+
+    flops, side = 0, input_size
+    for name, _o, k, stride, pad, _g, _b, _s in CONV_SPECS:
+        side = (side + 2 * pad - k) // stride + 1
+        flops += 2 * size(params[name]["w"]) * side * side
+        if name in ("conv1", "conv2", "conv5"):
+            side = _ceil_pool(side)
+    for name, *_ in FC_SPECS:
+        p = params[name]
+        flops += 2 * ((size(p["u"]) + size(p["v"])) if "u" in p
+                      else size(p["w"]))
+    return flops
 
 
 def caffe_max_pool(x: torch.Tensor, window: int = 3,
