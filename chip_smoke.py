@@ -36,6 +36,16 @@ GPU) is what runs:
   ``max_error`` lines each, each AUC within 0.02 of JAX's on the same
   files (and, on the host path, of the committed golden), at most 1 of 8
   horizons beyond 0.02 of JAX's;
+* progressive JPEG: every file of ``assets/examples/progressive/``
+  (PIL's progressive saves, ``scripts/make_progressive_fixtures.py``)
+  decodes to the JAX package's pixels (the committed digests), the 4:2:0
+  and gray ones also to the port's own baseline write of the same array;
+  the host decode is timed, progressive against baseline of the same
+  array, at 640x480 and 1024x768; then the York Urban mini (2 evaluated
+  images) with the two progressive photographs in place of its evaluated
+  files runs through ``benchmark.main`` on both paths (host LSD, and
+  ``--device_detect``): every horizon and the AUC within 0.02 of JAX's on
+  the same files;
 * the reference-shaped entry points (``em/compat.py``): ``renew_cnn_result``
   and ``run_em_single`` on bundled scene 0's LSD lines (K2 launched once,
   the horizon of the returned VPs within 0.02 of JAX's);
@@ -75,6 +85,7 @@ them), ``launches_per_batch`` is the main path's count for its one batch,
 ``launches_per_train_step`` the dense training run's count over its
 steps, ``launches_sharded`` the sharded serving runs' (all ranks),
 ``launches_bench`` the bench phase's (every loop, warm-up and stage pass),
+``launches_progressive`` the progressive phase's two driver runs,
 K1's ``ms_by_wide_grid`` its time at B = 4 on 720p and 1080p gradient
 grids, and ``bound_ms`` is the least time
 the card could take for the timed call's work (bytes over the memory
@@ -110,6 +121,9 @@ MINI_REFERENCE = os.path.join(ROOT, "assets", "examples",
                               "jax_reference_minisets.npz")
 BENCH_REFERENCE = os.path.join(ROOT, "assets", "examples",
                                "jax_reference_bench.npz")
+PROG_REFERENCE = os.path.join(ROOT, "assets", "examples",
+                              "jax_reference_progressive.npz")
+PROG_DIR = os.path.join(ROOT, "assets", "examples", "progressive")
 HORIZON_TOL = 0.02      # normalized horizon error vs the JAX reference
 AUC_TOL = 0.02          # the repo's AUC parity gate (BASELINE.md)
 K2_ATOL = 1e-4          # float image; only the f32 sum order differs
@@ -125,6 +139,12 @@ MINI_N_EVAL, MINI_BATCH, MINI_MAX_FAR = 8, 4, 1
 # run -> (data set, its name in data.datasets.DATASETS, --device_detect)
 MINI_RUNS = {"yud": ("yud", "york", False), "ecd": ("ecd", "eurasian", False),
              "hlw": ("hlw", "horizon", False), "yud_dev": ("yud", "york", True)}
+# the progressive phase: the York Urban mini's evaluated images (seed 101,
+# 2 evaluated), its runs (name in the reference -> --device_detect), the
+# fixtures timed against their baseline twins, decodes per timing
+PROG_PHOTOS = ("P1026", "P1027")
+PROG_RUNS = {"york": False, "york_dev": True}
+PROG_TIMED, PROG_DECODES = ("P1026", "P1026_1024"), 5
 # the bench phase: batches per loop, repeats, and how many of its 32
 # horizons may lie beyond HORIZON_TOL of JAX's (the synthetic protocol's
 # knife-edge allowance)
@@ -740,6 +760,145 @@ def miniset_phase(dev, card: str, kernels_all, ccl_k, sph_k, total: dict,
                   f"mini {run}: {len(far)} horizons beyond the gate")
     if failed:
         raise AssertionError(f"miniset phase: {failed}")
+
+
+def progressive_phase(card: str, kernels_all, ccl_k, sph_k,
+                      total: dict) -> dict:
+    """Progressive JPEG files through the decoder and both serving paths,
+    held against ``assets/examples/jax_reference_progressive.npz``. Every
+    check runs and logs before the phase fails on the first that did not
+    hold. Returns the phase's launches per kernel source."""
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch import benchmark as bench
+    from vanishing_points_2017_tpu_torch import weights as W
+    from vanishing_points_2017_tpu_torch.data import datasets as dsets
+    from vanishing_points_2017_tpu_torch.data import io as dio
+    from vanishing_points_2017_tpu_torch.data import jpeg, minisets
+    from vanishing_points_2017_tpu_torch.data.cache import StageCache
+    from vanishing_points_2017_tpu_torch.pipeline import PipelineConfig
+
+    failed: list = []
+    check = checker(failed)
+    ref = np.load(PROG_REFERENCE)
+    cfg = PipelineConfig()
+    stage = "result_w" + W.weights_identity() + "_m" + W.mean_identity()
+    phase: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "yud")
+        minisets.make_mini_yud(root, n_eval=len(PROG_PHOTOS))
+        # the arrays PIL saved progressive: the mini's baseline photographs
+        # decoded, and P1026's resized to 1024x768
+        sources = {n: dio.load_image(os.path.join(root, n, f"{n}.jpg"))
+                   for n in PROG_PHOTOS}
+        sources["P1026_1024"] = dio.resize_max(sources["P1026"], 1024)
+
+        # ---- every fixture against JAX's pixels, and the baseline twins
+        blobs = {}
+        for name in (str(n) for n in ref["files"]):
+            with open(os.path.join(PROG_DIR, f"{name}.jpg"), "rb") as fh:
+                blobs[name] = fh.read()
+            check(hashlib.sha256(blobs[name]).hexdigest()
+                  == str(ref[f"file_sha256_{name}"]),
+                  f"progressive {name}: not the committed file")
+            px = dio.load_image(os.path.join(PROG_DIR, f"{name}.jpg"))
+            same = (hashlib.sha256(np.ascontiguousarray(px).tobytes())
+                    .hexdigest() == str(ref[f"sha256_{name}"])
+                    and px.shape == tuple(ref[f"shape_{name}"]))
+            src = (ref[f"array_{name}"] if f"array_{name}" in ref.files
+                   else sources[name])
+            twin = "none (the port writes 4:2:0 and gray only)"
+            if int(ref[f"subsampling_{name}"]) in (-1, 2):
+                base = jpeg.decode_jpeg(jpeg.encode_jpeg(
+                    src, int(ref[f"quality_{name}"])))
+                twin = str(base.shape == px.shape and (base == px).all())
+                check(twin == "True", f"progressive {name}: pixels differ "
+                      "from the port's baseline write of the same array")
+            log(f"progressive {name} {px.shape}: pixels equal JAX's: "
+                f"{same}; equal the baseline twin's: {twin}")
+            check(same, f"progressive {name}: pixels differ from JAX's")
+
+        # ---- host decode, progressive against baseline of the same array
+        for name in PROG_TIMED:
+            base = jpeg.encode_jpeg(sources[name],
+                                    int(ref[f"quality_{name}"]))
+            ms = {}
+            for kind, blob in (("progressive", blobs[name]),
+                               ("baseline", base)):
+                jpeg.decode_jpeg(blob)
+                times = []
+                for _ in range(PROG_DECODES):
+                    t0 = time.perf_counter()
+                    jpeg.decode_jpeg(blob)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ms[kind] = statistics.median(times)
+            h, w = sources[name].shape[:2]
+            log(f"host decode {w}x{h}: progressive {ms['progressive']:.2f} "
+                f"ms, baseline {ms['baseline']:.2f} ms per image (median "
+                f"of {PROG_DECODES}; {len(blobs[name])} / {len(base)} "
+                f"bytes) ({card})")
+
+        # ---- the mini with the progressive photographs, both paths
+        for name in PROG_PHOTOS:
+            with open(os.path.join(root, name, f"{name}.jpg"), "wb") as fh:
+                fh.write(blobs[name])
+        adapter, target = dsets.DATASETS["york"]
+        records, start = adapter(root)
+        evaluated = records[start:]
+        for run, detect in PROG_RUNS.items():
+            res_dir = os.path.join(tmp, "results", run)
+            cache = StageCache(os.path.join(res_dir, "york"),
+                               bench.cache_key(cfg, detect))
+            for rec in records[:start]:  # the skipped split: placeholders
+                cache.save(rec.name, stage, hp1=np.zeros(3), hp2=np.zeros(3))
+            argv = ["--yud", "--dataset_dir", root, "--result_dir", res_dir,
+                    "--run_em", "--batch", str(len(PROG_PHOTOS))]
+            argv += ["--device_detect"] if detect else []
+            buf = io.StringIO()
+            reset(kernels_all)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = bench.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            for k in kernels_all:
+                phase[k.source] = phase.get(k.source, 0) + k.launches
+            count(kernels_all, total, f"progressive {run}",
+                  need=(ccl_k, sph_k) if detect else (sph_k,))
+            text = buf.getvalue().splitlines()
+            aucs = [float(ln.split()[-1]) for ln in text
+                    if ln.startswith("AUC:")]
+            n_err = sum(ln.startswith("max_error:") for ln in text)
+            check(rc == 0 and len(aucs) == 1 and n_err == len(evaluated),
+                  f"progressive {run}: exit {rc}, {n_err} max_error lines")
+            if not aucs:
+                log("\n".join(text[-20:]))
+                continue
+            errs = []
+            for i, rec in enumerate(evaluated):
+                check(str(ref[f"{run}_names"][i]) == rec.name,
+                      f"progressive {run}: record {i} is {rec.name}")
+                r = cache.load(rec.name, stage)
+                errs.append(dio.normalized_horizon_error(
+                    np.cross(r["hp1"].astype(np.float64),
+                             r["hp2"].astype(np.float64)),
+                    np.cross(ref[f"{run}_hp1"][i].astype(np.float64),
+                             ref[f"{run}_hp2"][i].astype(np.float64)),
+                    640, 480))
+            jax_auc = float(ref[f"auc_{run}"])
+            log(f"progressive {run}: AUC {aucs[0]:.5f} vs JAX "
+                f"{jax_auc:.5f}; horizons from JAX's "
+                f"{[round(float(e), 5) for e in errs]}; driver wall "
+                f"{wall_s:.1f} s "
+                f"for {len(records)} records ({card})")
+            check(abs(aucs[0] - jax_auc) <= AUC_TOL,
+                  f"progressive {run}: AUC {aucs[0]} vs JAX {jax_auc}")
+            check(all(e <= HORIZON_TOL for e in errs),
+                  f"progressive {run}: horizons {errs} beyond {HORIZON_TOL}")
+    if failed:
+        raise AssertionError(f"progressive phase: {failed}")
+    return phase
 
 
 def compat_phase(card: str, kernels_all, sph_k, total: dict, params, mean,
@@ -1584,6 +1743,11 @@ def main() -> int:
     miniset_phase(dev, card, kernels_all, ccl_k, sph_k, total, ld)
     log(f"miniset phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- progressive JPEG: the decoder, then both paths on the York mini
+    t0 = time.perf_counter()
+    per_prog = progressive_phase(card, kernels_all, ccl_k, sph_k, total)
+    log(f"progressive phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- the reference-shaped entry points on scene 0's LSD lines
     compat_phase(card, kernels_all, sph_k, total, params, mean, bundles[0],
                  host_ref["host_hp1"][0], host_ref["host_hp2"][0])
@@ -1611,6 +1775,7 @@ def main() -> int:
              launches_per_train_step=per_step[ccl_k.source],
              launches_sharded=per_sharded[ccl_k.source],
              launches_bench=per_bench[ccl_k.source],
+             launches_progressive=per_prog[ccl_k.source],
              ms_by_wide_grid={g: t[0] for g, t in wide_ms.items()},
              library_ms=None, **records["ccl_raster"]),
         dict(name="sphere_render", route="cuda",
@@ -1621,6 +1786,7 @@ def main() -> int:
              launches_per_train_step=per_step[sph_k.source],
              launches_sharded=per_sharded[sph_k.source],
              launches_bench=per_bench[sph_k.source],
+             launches_progressive=per_prog[sph_k.source],
              library_ms=None, **records["sphere_render"]),
     ]
     for k in kernel_info:

@@ -3,7 +3,8 @@
 Decoder: pixel equality with PIL (libjpeg's default decode) on the JAX
 miniset writer's files at the three data-set sizes, on grayscale files, on
 4:4:4 / 4:2:2 / 4:2:0 colour, odd sizes, restart markers, a noise image
-and a flat one; progressive and CMYK files raise. Encoder: the same bytes
+and a flat one; arithmetic-coded and CMYK files raise (progressive files:
+tests/test_torch_jpeg_progressive.py). Encoder: the same bytes
 on two calls, PIL's quantisation tables, PIL's pixels from the port's
 file, and an error against the source no worse than 1.05 x PIL's own
 quality-92 file.
@@ -115,10 +116,16 @@ def test_decoder_skips_app_and_comment_segments():
 
 
 def test_unsupported_files_raise(tmp_path):
+    """Arithmetic-coded progressive (SOF10) and CMYK files, non-JPEG bytes
+    and a file cut inside its scan raise; a Huffman progressive file
+    (refused until the port read SOF2) now reads as PIL reads it."""
     rgb = _noise((32, 32, 3))
     prog = _pil_bytes(rgb, progressive=True)
-    with pytest.raises(ValueError, match="progressive"):
-        jpeg.decode_jpeg(prog)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(prog), _pil_pixels(prog))
+    i = prog.index(b"\xff\xc2")
+    arith = prog[:i + 1] + b"\xca" + prog[i + 2:]
+    with pytest.raises(ValueError, match="arithmetic-coded progressive"):
+        jpeg.decode_jpeg(arith)
     assert jpeg.jpeg_size(_pil_bytes(rgb)) == (32, 32)
     buf = io.BytesIO()
     Image.fromarray(rgb).convert("CMYK").save(buf, format="JPEG")
@@ -130,9 +137,12 @@ def test_unsupported_files_raise(tmp_path):
     with pytest.raises(ValueError, match="JPEG"):
         jpeg.decode_jpeg(good[:len(good) // 2])  # cut inside the scan
     path = tmp_path / "p.jpg"
-    path.write_bytes(prog)
-    with pytest.raises(ValueError, match="p.jpg.*progressive"):
+    path.write_bytes(arith)
+    with pytest.raises(ValueError, match="p.jpg.*arithmetic"):
         tio.load_image(str(path))
+    path.write_bytes(prog)
+    np.testing.assert_array_equal(tio.load_image(str(path)),
+                                  _pil_pixels(prog))
 
 
 def _scan_bytes(blob: bytes) -> bytes:

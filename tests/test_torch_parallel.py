@@ -399,6 +399,27 @@ def test_initialize_refuses_nccl_with_more_ranks_than_gpus(monkeypatch,
     assert not torch.distributed.is_initialized()
 
 
+def test_initialize_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch,
+                                                        tmp_path):
+    """With no device named, ``initialize`` wants a GPU: without one it
+    raises before any process group starts, instead of carrying on on the
+    CPU; the CPU is used only when the caller asks for it."""
+    from vanishing_points_2017_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = "file://" + str(tmp_path / "store")
+    for kw in ({}, {"backend": "gloo"}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            distributed.initialize(store, world_size=1, rank=0, **kw)
+    assert not torch.distributed.is_initialized()
+    dev = distributed.initialize(store, world_size=1, rank=0, device="cpu")
+    try:
+        assert dev == torch.device("cpu")
+        assert torch.distributed.get_backend() == "gloo"
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def test_run_ranks_times_out(tmp_path):
     """A hung rank fails its group at the deadline."""
     with pytest.raises(TimeoutError):

@@ -3,7 +3,8 @@
 
 A module of its own (not a test file): the spawned ranks import it by
 name, and it imports torch and the port only, so a rank starts without
-JAX. Every function runs in each rank on the CPU over gloo and returns
+JAX. Every function runs in each rank on the CPU over gloo (asked for
+with ``device="cpu"``: ``initialize`` defaults to the GPU) and returns
 numpy arrays."""
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def mesh_lsim_serving(init_method: str, lp, mask, imgs, params_np,
     """4 ranks: mesh shapes and refusals, the sharded lsim (gathered), and
     ``sharded_pipeline_full`` (gathered) for each (name, dp, tp, cfg) of
     ``runs``."""
-    distributed.initialize(init_method, backend="gloo")
+    distributed.initialize(init_method, backend="gloo", device="cpu")
     out: dict = {"refused": [_raises(lambda: pm.make_mesh(dp=3, tp=2)),
                              _raises(lambda: pm.make_mesh(dp=4, tp=2))]}
     m = pm.make_mesh(dp=2, tp=2)
@@ -68,7 +69,7 @@ def train_steps(init_method: str, runs: dict, dp: int, tp: int) -> dict:
     """One sharded train step per run of ``runs`` (name -> params, images,
     labels, keep masks of the global batch, float32 products): the loss,
     the updated parameters and the new momentum, gathered."""
-    distributed.initialize(init_method, backend="gloo")
+    distributed.initialize(init_method, backend="gloo", device="cpu")
     m = pm.make_mesh(dp=dp, tp=tp)
     out = {}
     for name, (params_np, images, labels, keep) in runs.items():
@@ -91,7 +92,7 @@ def multislice_dry_run(init_method: str, params_np, images, labels,
     """``initialize`` from the launcher's environment alone (2 nodes of one
     rank each), ``make_multislice_mesh``, and one train step with dropout
     drawn from the (seed, step) generator."""
-    distributed.initialize(init_method)
+    distributed.initialize(init_method, device="cpu")
     refused = _raises(lambda: distributed.make_multislice_mesh(tp=2))
     m = distributed.make_multislice_mesh(tp=1)
     state = train.init_state(params_from_numpy(params_np), mesh=m)

@@ -21,7 +21,8 @@ by the configuration, the path and the weights and mean fingerprints.
 
 YUD is evaluated at its native size, ECD and HLW resized to fit 800 x 800;
 the first 25 records of YUD and ECD are the train/val split and are not
-evaluated. The images are baseline JPEG (``data/jpeg.py``) or PNG.
+evaluated. The images are JPEG, sequential or progressive
+(``data/jpeg.py``), or PNG.
 ``--weights``/``--mean`` take ``.npz``/``.npy`` or Caffe's
 ``.caffemodel``/``.binaryproto``. The error CDF is plotted into
 ``--result_dir`` where matplotlib is installed, and skipped with a line

@@ -1,7 +1,9 @@
-// Huffman entropy coding of baseline JPEG scans (ITU-T T.81, Annex F), the
-// bit-serial part of data/jpeg.py: everything else of the codec (markers,
-// quantisation, DCT, sampling, colour) is numpy. Plain C interface, built
-// with g++ at first use and bound with ctypes.
+// Huffman entropy coding of JPEG scans, the bit-serial part of data/jpeg.py:
+// sequential scans both ways (ITU-T T.81, Annex F) and the four kinds of
+// progressive scan for decoding (Annex G), as libjpeg's jdphuff.c reads
+// them. Everything else of the codec (markers, quantisation, DCT, sampling,
+// colour) is numpy. Plain C interface, built with g++ at first use and
+// bound with ctypes.
 //
 // A scan is described by its MCU grid and, per component, six int64 values:
 // blocks per MCU across and down, the width of the component's block array
@@ -22,6 +24,15 @@ const int ZIGZAG[64] = {
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// ZIGZAG with 16 more entries of 63: a run that overshoots the band in a
+// progressive scan writes where libjpeg's padded jpeg_natural_order does
+const int NATURAL[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 const int TABLE_BYTES = 16 + 256;
 
@@ -141,6 +152,99 @@ int decode_symbol(BitReader& br, const DecodeTable& t) {
   return -1;
 }
 
+// The scan's Huffman tables, and a check that every component of the scan
+// names defined ones (`need_dc`, `need_ac`: which of the two it reads).
+bool scan_setup(const uint8_t* tables, int ncomp, const int64_t* layout,
+                bool need_dc, bool need_ac, DecodeTable* dc, DecodeTable* ac,
+                Component* comp) {
+  for (int i = 0; i < 4; ++i) {
+    build_decode_table(tables + i * TABLE_BYTES, &dc[i]);
+    build_decode_table(tables + (4 + i) * TABLE_BYTES, &ac[i]);
+  }
+  for (int c = 0; c < ncomp; ++c) {
+    std::memcpy(&comp[c], layout + 6 * c, sizeof(Component));
+    if (need_dc && (comp[c].dc < 0 || comp[c].dc > 3 || !dc[comp[c].dc].defined))
+      return false;
+    if (need_ac && (comp[c].ac < 0 || comp[c].ac > 3 || !ac[comp[c].ac].defined))
+      return false;
+  }
+  return true;
+}
+
+// One block of an AC first scan over the band ss..se (jdphuff.c's
+// decode_mcu_AC_first): values shifted up by al; an EOBn symbol starts a
+// run of end-of-bands that spans the following blocks.
+bool ac_first(BitReader& br, const DecodeTable& t, int ss, int se, int al,
+              int64_t& eobrun, int16_t* blk) {
+  if (eobrun > 0) {
+    --eobrun;
+    return true;
+  }
+  for (int k = ss; k <= se; ++k) {
+    int rs = decode_symbol(br, t);
+    if (rs < 0) return false;
+    int r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      int32_t v = extend(br.receive(s), s);
+      blk[NATURAL[k]] = (int16_t)((uint32_t)v << al);
+    } else if (r == 15) {
+      k += 15;  // sixteen zeros
+    } else {
+      eobrun = (int64_t(1) << r) + br.receive(r) - 1;
+      break;
+    }
+  }
+  return true;
+}
+
+// One block of an AC refinement scan (decode_mcu_AC_refine): a correction
+// bit for every coefficient already nonzero as the walk passes it, a zero
+// run that counts only zero coefficients, new coefficients of +-(1 << al).
+// A symbol's size other than 0 or 1 is only a warning in libjpeg and is
+// read as 1. Within an end-of-band run, the block takes correction bits
+// only.
+bool ac_refine(BitReader& br, const DecodeTable& t, int ss, int se, int al,
+               int64_t& eobrun, int16_t* blk) {
+  const int p1 = 1 << al, m1 = -p1;
+  int k = ss;
+  auto correct = [&](int16_t* c) {
+    if (br.bit() && (*c & p1) == 0) *c = (int16_t)(*c + (*c >= 0 ? p1 : m1));
+  };
+  if (eobrun == 0) {
+    for (; k <= se; ++k) {
+      int rs = decode_symbol(br, t);
+      if (rs < 0) return false;
+      int r = rs >> 4, s = rs & 15, v = 0;
+      if (s) {
+        v = br.bit() ? p1 : m1;
+      } else if (r != 15) {
+        eobrun = int64_t(1) << r;
+        if (r) eobrun += br.receive(r);
+        break;  // the rest of the band is the run's
+      }
+      do {
+        int16_t* c = blk + NATURAL[k];
+        if (*c != 0) {
+          correct(c);
+        } else if (--r < 0) {
+          break;  // the zero the new coefficient takes
+        }
+        ++k;
+      } while (k <= se);
+      if (v) blk[NATURAL[k]] = (int16_t)v;
+    }
+  }
+  if (eobrun > 0) {
+    for (; k <= se; ++k) {
+      int16_t* c = blk + NATURAL[k];
+      if (*c != 0) correct(c);
+    }
+    --eobrun;
+  }
+  return true;
+}
+
 // ---------------------------------------------------------------- encoding
 
 struct EncodeTable {
@@ -222,17 +326,9 @@ int64_t jpeg_decode_scan(const uint8_t* data, int64_t size, int ncomp,
                          int64_t mcus_y, int restart_interval,
                          const uint8_t* tables, int16_t* coefs) {
   DecodeTable dc[4], ac[4];
-  for (int i = 0; i < 4; ++i) {
-    build_decode_table(tables + i * TABLE_BYTES, &dc[i]);
-    build_decode_table(tables + (4 + i) * TABLE_BYTES, &ac[i]);
-  }
   Component comp[4];
-  for (int c = 0; c < ncomp; ++c) {
-    std::memcpy(&comp[c], layout + 6 * c, sizeof(Component));
-    if (comp[c].dc < 0 || comp[c].dc > 3 || comp[c].ac < 0 ||
-        comp[c].ac > 3 || !dc[comp[c].dc].defined || !ac[comp[c].ac].defined)
-      return ERR_NO_TABLE;
-  }
+  if (!scan_setup(tables, ncomp, layout, true, true, dc, ac, comp))
+    return ERR_NO_TABLE;
   BitReader br(data, size);
   int32_t pred[4] = {0, 0, 0, 0};
   int64_t todo = restart_interval;
@@ -269,6 +365,68 @@ int64_t jpeg_decode_scan(const uint8_t* data, int64_t size, int ncomp,
               if (i > 63) return ERR_BAD_COEF;
               blk[ZIGZAG[i++]] = (int16_t)extend(br.receive(n), n);
             }
+            if (br.starved > 16) return ERR_TRUNCATED;
+          }
+        }
+      }
+    }
+  }
+  return br.pos;
+}
+
+// Decode one scan of a progressive frame into the coefficients the earlier
+// scans left (T.81 G.1.2; libjpeg's jdphuff.c): ss == 0 is a DC scan (first
+// when ah == 0, else one refinement bit per block), over one component or
+// interleaved; ss > 0 an AC scan of one component over the band ss..se,
+// first when ah == 0, else the correction-bit pass. Values are scaled by
+// 1 << al. Restart markers reset the DC predictions and the end-of-band
+// run. The scan parameters are checked by the caller. Returns the bytes
+// used, or a negative error code.
+int64_t jpeg_decode_scan_progressive(const uint8_t* data, int64_t size,
+                                     int ncomp, const int64_t* layout,
+                                     int64_t mcus_x, int64_t mcus_y,
+                                     int restart_interval,
+                                     const uint8_t* tables, int ss, int se,
+                                     int ah, int al, int16_t* coefs) {
+  DecodeTable dc[4], ac[4];
+  Component comp[4];
+  if (!scan_setup(tables, ncomp, layout, ss == 0 && ah == 0, ss > 0, dc, ac,
+                  comp))
+    return ERR_NO_TABLE;
+  BitReader br(data, size);
+  int32_t pred[4] = {0, 0, 0, 0};
+  int64_t eobrun = 0, todo = restart_interval;
+  int next_rst = 0;
+  for (int64_t my = 0; my < mcus_y; ++my) {
+    for (int64_t mx = 0; mx < mcus_x; ++mx) {
+      if (restart_interval && todo == 0) {
+        if (!br.restart(next_rst)) return ERR_RESTART;
+        next_rst = (next_rst + 1) & 7;
+        todo = restart_interval;
+        pred[0] = pred[1] = pred[2] = pred[3] = 0;
+        eobrun = 0;
+      }
+      --todo;
+      for (int c = 0; c < ncomp; ++c) {
+        const Component& k = comp[c];
+        for (int64_t by = 0; by < k.vs; ++by) {
+          for (int64_t bx = 0; bx < k.hs; ++bx) {
+            int16_t* blk = coefs + k.offset +
+                           ((my * k.vs + by) * k.width + mx * k.hs + bx) * 64;
+            bool ok = true;
+            if (ss == 0 && ah == 0) {
+              int s = decode_symbol(br, dc[k.dc]);
+              if (s < 0 || s > 15) return ERR_BAD_CODE;
+              pred[c] += extend(br.receive(s), s);
+              blk[0] = (int16_t)((uint32_t)pred[c] << al);
+            } else if (ss == 0) {
+              if (br.bit()) blk[0] = (int16_t)(blk[0] | (1 << al));
+            } else if (ah == 0) {
+              ok = ac_first(br, ac[k.ac], ss, se, al, eobrun, blk);
+            } else {
+              ok = ac_refine(br, ac[k.ac], ss, se, al, eobrun, blk);
+            }
+            if (!ok) return ERR_BAD_CODE;
             if (br.starved > 16) return ERR_TRUNCATED;
           }
         }

@@ -1,11 +1,12 @@
 """Host-side image ingest without PIL (``data/io.py`` of the JAX package).
 
 The port does not use PIL, so :func:`load_image` decodes the file itself,
-by its signature: PNG with ``zlib`` and numpy (8-bit grayscale,
-grayscale+alpha, RGB and RGBA, non-interlaced: everything the bundled
-scenes and the usual exported photos use), baseline JPEG through
-``data/jpeg.py`` (the datasets' format; progressive files raise); other
-formats raise. :func:`encode_png` writes 8-bit grayscale and RGB PNGs.
+by its signature, to the array the JAX package's ``load_image`` gets from
+PIL: PNG with ``zlib`` and numpy (every colour type and bit depth of the
+standard, palette included, Adam7-interlaced or not), sequential and
+progressive JPEG through ``data/jpeg.py`` (the datasets' format); other
+formats (BMP, TIFF, GIF, WebP, ...) raise. :func:`encode_png` writes
+8-bit grayscale and RGB PNGs.
 :func:`resize_max` reproduces Pillow's LANCZOS resize pixel for pixel. :func:`detect_lsd_lines`
 runs the host LSD (``lsd.py``) and normalizes its segments.
 ``rgb2gray`` and ``normalized_horizon_error`` are the JAX package's
@@ -23,11 +24,19 @@ import numpy as np
 # skimage.color.rgb2gray coefficients (ITU-R 601-2 luma, skimage order)
 _LUMA = np.array([0.2125, 0.7154, 0.0721], np.float64)
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples/pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples/pixel
+# colour type -> the bit depths the standard allows
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the per-scanline PNG filters (None/Sub/Up/Average/Paeth)."""
+    if len(raw) != h * (stride + 1):
+        raise ValueError("corrupt PNG: the image data has the wrong size")
     data = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
@@ -67,11 +76,34 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(blob: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 array, (H, W) grayscale or (H, W, C)."""
+def _samples(raw: bytes, h: int, w: int, ch: int, depth: int) -> tuple:
+    """One (sub-)image's filtered scanlines -> (H, W, ch) samples (uint16
+    at 16 bits, else uint8 as stored), and the bytes it took."""
+    stride = (w * ch * depth + 7) // 8
+    size = h * (stride + 1)
+    rows = _unfilter(raw[:size], h, stride, max(1, ch * depth // 8))
+    if depth == 16:
+        out = rows.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        out = rows
+    else:  # 1, 2 or 4 bits, the leftmost sample in the high bits
+        bits = np.unpackbits(rows, axis=1)[:, :w * depth]
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        out = (bits.reshape(h, w, depth) * weights).sum(-1, dtype=np.uint8)
+    return out.reshape(h, w, ch), size
+
+
+def png_image(blob: bytes) -> tuple[np.ndarray, str]:
+    """PNG bytes -> (samples, mode): the (H, W, C) samples and the mode PIL
+    opens the file in ("1", "L", "I;16", "LA", "RGB", "RGBA" or "P").
+    Samples are uint8 but for "I;16" (16-bit gray, uint16): other 16-bit
+    files keep the high byte, as PIL's unpackers do, 2- and 4-bit gray is
+    scaled to 0..255 (x 85, x 17) and 1-bit gray to 0 / 255, and a palette
+    file's indices are looked up in its PLTE (RGB; an index past the
+    palette gives black; tRNS is ignored)."""
     if blob[:8] != _PNG_SIG:
         raise ValueError("not a PNG file")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte = 8, [], None, None
     while pos < len(blob):
         (length,) = struct.unpack(">I", blob[pos:pos + 4])
         ctype = blob[pos + 4:pos + 8]
@@ -79,6 +111,8 @@ def decode_png(blob: bytes) -> np.ndarray:
         pos += 12 + length
         if ctype == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            plte = body
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
@@ -86,13 +120,42 @@ def decode_png(blob: bytes) -> np.ndarray:
     if hdr is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, color, _comp, _filt, interlace = hdr
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
+    if depth not in _DEPTHS.get(color, ()) or interlace > 1:
         raise ValueError(f"unsupported PNG (bit depth {depth}, colour type "
-                         f"{color}, interlace {interlace}); expected 8-bit "
-                         "gray/gray+alpha/RGB/RGBA, non-interlaced")
+                         f"{color}, interlace {interlace})")
+    if color == 3 and (plte is None or len(plte) % 3 or len(plte) > 768):
+        raise ValueError("corrupt PNG: a palette image without a valid PLTE")
     ch = _CHANNELS[color]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
-    return img.reshape(h, w) if ch == 1 else img.reshape(h, w, ch)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace == 0:
+        img = _samples(raw, h, w, ch, depth)[0]
+    else:
+        img = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:
+                img[y0::dy, x0::dx], size = _samples(raw, ph, pw, ch, depth)
+                raw = raw[size:]
+    if color == 3:
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(plte) // 3] = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+        return lut[img[..., 0]], "P"
+    if color == 0:
+        if depth == 16:
+            return img, "I;16"
+        if depth < 8:
+            img = img * np.uint8(255 // ((1 << depth) - 1))
+        return img, "1" if depth == 1 else "L"
+    if depth == 16:
+        img = (img >> 8).astype(np.uint8)
+    return img, {2: "RGB", 4: "LA", 6: "RGBA"}[color]
+
+
+def decode_png(blob: bytes) -> np.ndarray:
+    """PNG bytes -> the samples of :func:`png_image`, (H, W) for one
+    channel, else (H, W, C)."""
+    img = png_image(blob)[0]
+    return img[..., 0] if img.shape[2] == 1 else img
 
 
 def png_size(blob: bytes) -> tuple[int, int]:
@@ -147,9 +210,12 @@ def image_size(path: str) -> tuple[int, int]:
 
 
 def load_image(path: str) -> np.ndarray:
-    """PNG or baseline JPEG file -> RGB (or grayscale) uint8 array, by the
-    file's signature; a PNG's alpha channel is dropped, like the JAX
-    package's ``convert("RGB")``. Any other format raises."""
+    """PNG or JPEG file (sequential or progressive) -> RGB (or grayscale)
+    uint8 array, by the file's signature, as the JAX package's
+    ``load_image`` gets it from PIL: "L" and "RGB" files as they are, every
+    other mode through ``convert("RGB")`` (alpha dropped, gray replicated,
+    1-bit gray 0 / 255, 16-bit gray clipped to 255). Any other format
+    raises."""
     from . import jpeg
 
     with open(path, "rb") as f:
@@ -162,11 +228,13 @@ def load_image(path: str) -> np.ndarray:
     if blob[:8] != _PNG_SIG:
         raise ValueError(f"{path}: neither a PNG nor a JPEG file; the "
                          "PyTorch port reads these two formats")
-    img = decode_png(blob)
-    if img.ndim == 3:
-        img = img[..., :3] if img.shape[2] == 4 else (
-            img[..., 0] if img.shape[2] == 2 else img)
-    return np.ascontiguousarray(img)
+    img, mode = png_image(blob)
+    if mode == "L":
+        return np.ascontiguousarray(img[..., 0])
+    if mode in ("1", "I;16", "LA"):
+        img = np.repeat(np.minimum(img[..., :1], 255).astype(np.uint8), 3,
+                        axis=2)
+    return np.ascontiguousarray(img[..., :3])
 
 
 # Pillow's 8-bit resampling (libImaging/Resample.c): coefficients in fixed

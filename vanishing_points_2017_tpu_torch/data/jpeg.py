@@ -1,4 +1,4 @@
-"""Baseline JPEG codec in numpy: the port's stand-in for PIL's.
+"""JPEG codec in numpy: the port's stand-in for PIL's.
 
 The JAX package reads the datasets' JPEG files through PIL, that is,
 through libjpeg with its default settings. The port uses no PIL, and the
@@ -8,12 +8,19 @@ reproduces that decode bit for bit: the integer "islow" inverse DCT
 table), "fancy" triangle upsampling of 2:1 chroma (h2v1 and h2v2) with
 libjpeg's rounding biases and plain replication where a component is at
 most 2 samples wide, and the 16-bit fixed-point YCbCr -> RGB tables.
+Each component is dequantised with the table in force at its first scan,
+where libjpeg latches it.
 
-Read: baseline and extended sequential DCT (SOF0/SOF1), Huffman coded,
-8 bits, 1 or 3 components, sampling 1x1, 2x1 and 2x2, restart intervals,
-interleaved and non-interleaved scans, any size. Progressive, lossless,
-arithmetic-coded, 12-bit and 4-component files raise a ``ValueError``
-that says what the file is.
+Read: baseline and extended sequential DCT (SOF0/SOF1) and progressive
+DCT (SOF2), Huffman coded, 8 bits, 1 or 3 components, sampling 1x1, 2x1
+and 2x2, restart intervals, interleaved and non-interleaved scans, any
+size. A progressive file's scans (spectral selection and successive
+approximation) build the same coefficient arrays a sequential file
+carries, then the same output pass runs. Where a progressive file leaves
+any of a component's coefficients 1-9 (zigzag order) short of their last
+bit, libjpeg-turbo smooths the blocks instead (``jdcoefct.c``,
+``smoothing_ok``); such a file raises. So do lossless, arithmetic-coded,
+12-bit and 4-component files: the ``ValueError`` says what the file is.
 
 :func:`encode_jpeg` writes what PIL's ``save(quality=q)`` writes with its
 defaults (JFIF, 4:2:0 for colour, the standard's Huffman tables, no
@@ -61,7 +68,7 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 _SOF_NAMES = {
-    0xC2: "progressive DCT (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC3: "lossless (SOF3)",
     0xC5: "differential sequential DCT (SOF5)",
     0xC6: "differential progressive DCT (SOF6)",
     0xC7: "differential lossless (SOF7)",
@@ -92,6 +99,10 @@ def _load() -> ctypes.CDLL:
             lib.jpeg_decode_scan.restype = i64
             lib.jpeg_decode_scan.argtypes = [p, i64, ctypes.c_int, p, i64,
                                              i64, ctypes.c_int, p, p]
+            lib.jpeg_decode_scan_progressive.restype = i64
+            lib.jpeg_decode_scan_progressive.argtypes = [
+                p, i64, ctypes.c_int, p, i64, i64, ctypes.c_int, p,
+                *[ctypes.c_int] * 4, p]
             lib.jpeg_encode_scan.restype = i64
             lib.jpeg_encode_scan.argtypes = [p, ctypes.c_int, p, i64, i64,
                                              ctypes.c_int, p, p, i64]
@@ -117,13 +128,19 @@ class _Component:
     def __init__(self, cid: int, hs: int, vs: int, tq: int):
         self.cid, self.hs, self.vs, self.tq = cid, hs, vs, tq
         self.seen = False
+        self.qt = None  # the table latched at the component's first scan
+        # the successive-approximation bit last reached for each zigzag
+        # coefficient, -1 while it was never coded (libjpeg's coef_bits)
+        self.coef_bits = np.full(64, -1, np.int64)
 
 
 class _Frame:
     """The frame header and the block layout that follows from it."""
 
-    def __init__(self, height: int, width: int, comps: list):
+    def __init__(self, height: int, width: int, comps: list,
+                 progressive: bool = False):
         self.height, self.width, self.comps = height, width, comps
+        self.progressive = progressive
         self.hmax = max(c.hs for c in comps)
         self.vmax = max(c.vs for c in comps)
         self.mcus_x = _ceil_div(width, 8 * self.hmax)
@@ -159,7 +176,8 @@ class _Frame:
 def _parse_frame(marker: int, seg: bytes) -> _Frame:
     if marker in _SOF_NAMES:
         raise ValueError(f"unsupported JPEG: {_SOF_NAMES[marker]}; the port "
-                         "reads baseline sequential Huffman JPEG only")
+                         "reads sequential and progressive Huffman JPEG "
+                         "only")
     precision = seg[0]
     height, width = int.from_bytes(seg[1:3], "big"), int.from_bytes(
         seg[3:5], "big")
@@ -177,7 +195,7 @@ def _parse_frame(marker: int, seg: bytes) -> _Frame:
     for i in range(ncomp):
         cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
         comps.append(_Component(cid, hv >> 4, hv & 15, tq))
-    frame = _Frame(height, width, comps)
+    frame = _Frame(height, width, comps, progressive=marker == 0xC2)
     for c in comps:
         ratio = (frame.hmax / c.hs, frame.vmax / c.vs) if ncomp > 1 else (1, 1)
         if ratio not in ((1, 1), (2, 1), (2, 2)):
@@ -268,7 +286,9 @@ def _parse(blob: bytes, header_only: bool = False) -> _Parsed:
             frame = out.frame
             if frame is None:
                 raise ValueError("corrupt JPEG: a scan before the frame")
-            ns = seg[0]
+            ns = seg[0] if seg else 0
+            if not 1 <= ns <= 4 or len(seg) != 4 + 2 * ns:
+                raise ValueError("corrupt JPEG: bad scan header")
             by_id = {c.cid: c for c in frame.comps}
             comps, tabs = [], []
             for i in range(ns):
@@ -278,11 +298,23 @@ def _parse(blob: bytes, header_only: bool = False) -> _Parsed:
                                      "component")
                 comps.append(by_id[cid])
                 tabs.append((t >> 4, t & 15))
-                by_id[cid].seen = True
+            for c in comps:
+                c.seen = True
+                if c.qt is None:  # libjpeg's latch_quant_tables
+                    if c.tq not in out.qt:
+                        raise ValueError(
+                            "corrupt JPEG: a component names a quantisation "
+                            "table that was not defined")
+                    c.qt = out.qt[c.tq]
             layout, mx, my = frame.layout(comps, tabs)
-            used = _load().jpeg_decode_scan(
-                _ptr(data[pos:]), n - pos, ns, _ptr(layout), mx, my, restart,
-                _ptr(tables), _ptr(out.coefs))
+            args = (_ptr(data[pos:]), n - pos, ns, _ptr(layout), mx, my,
+                    restart, _ptr(tables))
+            if frame.progressive:
+                band = _progression(comps, *seg[1 + 2 * ns:4 + 2 * ns])
+                used = _load().jpeg_decode_scan_progressive(
+                    *args, *band, _ptr(out.coefs))
+            else:
+                used = _load().jpeg_decode_scan(*args, _ptr(out.coefs))
             if used < 0:
                 raise ValueError(f"corrupt JPEG: {_ERRORS.get(used, used)}")
             pos += used
@@ -291,7 +323,52 @@ def _parse(blob: bytes, header_only: bool = False) -> _Parsed:
         raise ValueError("corrupt JPEG: no frame header")
     if not all(c.seen for c in out.frame.comps):
         raise ValueError("corrupt JPEG: a component has no scan")
+    if out.frame.progressive:
+        _refuse_smoothing(out.frame.comps)
     return out
+
+
+def _progression(comps: list, ss: int, se: int, a: int) -> tuple:
+    """A progressive scan's (Ss, Se, Ah, Al), checked as libjpeg's
+    ``start_pass_phuff_decoder`` checks them, and the components'
+    ``coef_bits`` moved on. A malformed header raises, as there; an
+    inconsistent progression (an AC scan before the component's first DC
+    scan, an Ah other than the bits already known) is only a warning there,
+    and the file is decoded all the same."""
+    ah, al = a >> 4, a & 15
+    if ss == 0:
+        bad = se != 0
+    else:
+        bad = ss > se or se > 63 or len(comps) != 1
+    if (ah and al != ah - 1) or al > 13 or bad:
+        raise ValueError(f"corrupt JPEG: bad progression parameters Ss={ss} "
+                         f"Se={se} Ah={ah} Al={al}")
+    for c in comps:
+        c.coef_bits[ss:se + 1] = al
+    return ss, se, ah, al
+
+
+def _refuse_smoothing(comps: list) -> None:
+    """Raise where libjpeg-turbo's ``smoothing_ok`` holds at the end of the
+    file: every component's table latched and nonzero at the first 10
+    zigzag positions, every DC at least partly known, and some component's
+    coefficients 1-9 never coded or short of their last bit. libjpeg then
+    estimates those coefficients from the neighbouring blocks' DC values,
+    a filter that differs between libjpeg versions; the port decodes the
+    coefficients as they are only."""
+    useful = None
+    for c in comps:
+        if c.qt is None or not c.qt[ZIGZAG[:10]].all() or c.coef_bits[0] < 0:
+            return
+        if useful is None and (c.coef_bits[1:10] != 0).any():
+            useful = c
+    if useful is not None:
+        raise ValueError(
+            "unsupported JPEG: a progressive file that leaves component "
+            f"{useful.cid}'s coefficients 1-9 with bits never sent "
+            f"(bits known: {useful.coef_bits[1:10].tolist()}, -1 for none); "
+            "libjpeg decodes it with block smoothing, which the port does "
+            "not reproduce")
 
 
 # ------------------------------------------------------------------- decode
@@ -385,12 +462,9 @@ def decode_jpeg(blob: bytes) -> np.ndarray:
     frame = parsed.frame
     planes = []
     for c in frame.comps:
-        if c.tq not in parsed.qt:
-            raise ValueError("corrupt JPEG: a component names a "
-                             "quantisation table that was not defined")
         coef = parsed.coefs[c.offset:c.offset + c.bw * c.bh * 64]
         coef = coef.reshape(c.bh, c.bw, 8, 8).astype(np.int64)
-        px = _idct_blocks(coef * parsed.qt[c.tq].reshape(8, 8))
+        px = _idct_blocks(coef * c.qt.reshape(8, 8))
         plane = px.transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
         planes.append(plane[:c.h, :c.w])
     if len(planes) == 1:

@@ -9,11 +9,14 @@ the (dp, tp) mesh with the model axis (tp) inside a node and the data axis
 (dp) across nodes: only the gradient all-reduce then crosses nodes, the
 activation collectives stay on the node's links.
 
-The backend is explicit. On a GPU the default is ``nccl``; NCCL refuses
-two ranks on one card, so where a node's ranks outnumber its GPUs
-:func:`initialize` raises unless the caller passes ``backend="gloo"``
-(gloo takes CUDA tensors for the collectives the port uses). Without a
-GPU the only backend is ``gloo``. Nothing switches backends by itself.
+The device and the backend are explicit. A rank runs on a GPU unless
+the caller passes ``device="cpu"``; without a GPU :func:`initialize`
+raises instead of carrying on on the CPU. On a GPU the default backend is
+``nccl``; NCCL refuses two ranks on one card, so where a node's ranks
+outnumber its GPUs :func:`initialize` raises unless the caller passes
+``backend="gloo"`` (gloo takes CUDA tensors for the collectives the port
+uses). On the CPU the only backend is ``gloo``. Nothing switches devices
+or backends by itself.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import os
 import torch
 import torch.distributed as dist
 
+from ..device import require_device
 from .mesh import Mesh, make_mesh
 
 
@@ -32,21 +36,24 @@ def _env_int(name: str, default: int | None = None) -> int | None:
 
 
 def initialize(init_method: str | None = None, world_size: int | None = None,
-               rank: int | None = None,
-               backend: str | None = None) -> torch.device:
+               rank: int | None = None, backend: str | None = None,
+               device: str | torch.device = "cuda") -> torch.device:
     """Start the process group (idempotent) and return this rank's device:
-    ``cuda:(LOCAL_RANK % device_count)`` on a GPU machine, else the CPU.
+    for ``device="cuda"`` (the default) ``cuda:(LOCAL_RANK %
+    device_count)``, bound as the current device; raises without a GPU.
+    ``device="cpu"`` runs the rank on the CPU.
 
     Arguments left None come from the environment (``init_method``
     defaults to ``env://``, which reads ``MASTER_ADDR`` and
     ``MASTER_PORT``). Raises where a node's ranks outnumber its GPUs and
     ``backend`` is not ``"gloo"``."""
     local_rank = _env_int("LOCAL_RANK", 0)
-    if torch.cuda.is_available():
-        device = torch.device("cuda", local_rank % torch.cuda.device_count())
+    device = require_device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda",
+                                  local_rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    else:
-        device = torch.device("cpu")
     if dist.is_initialized():
         return device
     world_size = world_size if world_size is not None else _env_int(
