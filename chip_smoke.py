@@ -57,6 +57,17 @@ GPU) is what runs:
 * K1's wide kernel (grids past 1024 columns): bit-exact on random planes
   1025-4031 wide and on 720p / 1080p gradient grids (timed), and a
   1280x720 frame through ``process_images``;
+* the accuracy harnesses (``vanishing_points_2017_tpu_torch.tools``) on
+  the same 50 scenes, against ``assets/examples/jax_reference_tools.npz``:
+  the knife-edge flip protocol (K = 8 jitters of sigma 0.5 px, 2%
+  dropout, ``default_rng(11)`` per probe) on JAX's five pinned scenes with
+  the single EM and with consensus K = 8, at most JAX's flips (0 of 8);
+  the host / full / ideal-prior AUC decomposition at batch 10 (each AUC
+  within 0.02 of JAX's, at most 2 of 50 horizons beyond 0.02; host and
+  full bit-identical to the synthetic run at batch 8); the detector
+  re-validation gate with ``--skip_pins``; the detector's sub-stage times
+  and ``profile_e2e``'s round trip, detector, post-detector program and
+  price of one EM iteration (information only);
 * the throughput bench (``python -m vanishing_points_2017_tpu_torch.bench``)
   through its measurement at b32 / 640x640 on its synthetic scenes (8
   batches a loop, 3 repeats): the record's keys, platform and card; the
@@ -86,6 +97,7 @@ them), ``launches_per_batch`` is the main path's count for its one batch,
 steps, ``launches_sharded`` the sharded serving runs' (all ranks),
 ``launches_bench`` the bench phase's (every loop, warm-up and stage pass),
 ``launches_progressive`` the progressive phase's two driver runs,
+``launches_tools`` the tools phase's (probes, paths, gate and profiles),
 K1's ``ms_by_wide_grid`` its time at B = 4 on 720p and 1080p gradient
 grids, and ``bound_ms`` is the least time
 the card could take for the timed call's work (bytes over the memory
@@ -124,6 +136,8 @@ BENCH_REFERENCE = os.path.join(ROOT, "assets", "examples",
 PROG_REFERENCE = os.path.join(ROOT, "assets", "examples",
                               "jax_reference_progressive.npz")
 PROG_DIR = os.path.join(ROOT, "assets", "examples", "progressive")
+TOOLS_REFERENCE = os.path.join(ROOT, "assets", "examples",
+                               "jax_reference_tools.npz")
 HORIZON_TOL = 0.02      # normalized horizon error vs the JAX reference
 AUC_TOL = 0.02          # the repo's AUC parity gate (BASELINE.md)
 K2_ATOL = 1e-4          # float image; only the f32 sum order differs
@@ -180,6 +194,13 @@ WIDE_WIDTHS = (1025, 1279, 1919, 2049, 4031)
 TP_GRID_TOL = 2e-2
 LSIM_N = 2048
 RANK_TIMEOUT = 300
+# the tools phase: tests/test_knife_edge.py's flip protocol (a fresh
+# default_rng(11) per probe, K jitters of sigma 0.5 px at 640, 2% dropout,
+# a flip is a horizon error above 0.10) on JAX's five pinned scenes, the
+# consensus K of the consensus probes, and the decomposition's batch
+KNIFE_SCENES, KNIFE_K, KNIFE_SEED = (12, 15, 27, 31, 38), 8, 11
+KNIFE_SIGMA_PX, KNIFE_DROP, KNIFE_GATE = 0.5, 0.02, 0.10
+KNIFE_CONSENSUS, TOOLS_BATCH = 8, 10
 
 
 def log(msg: str) -> None:
@@ -1080,6 +1101,127 @@ def wide_grid_phase(dev, card: str, pipe, kernels_all, total: dict,
     return times
 
 
+def tools_phase(card: str, pipe, kernels_all, total: dict,
+                syn_out: dict) -> dict:
+    """The accuracy harnesses (``vanishing_points_2017_tpu_torch.tools``)
+    with the shipped weights, against ``jax_reference_tools.npz``: the
+    knife-edge flip protocol on JAX's five pinned scenes (single EM and
+    consensus K = 8, at most JAX's flips), the host / full / ideal AUC
+    decomposition (each AUC within AUC_TOL of JAX's, at most SYN_MAX_FAR
+    horizons beyond HORIZON_TOL; host and full bit-identical to the
+    synthetic phase's ``syn_out``), the re-validation gate with
+    ``--skip_pins``, and the detector and end-to-end profiles (no time
+    gate). Runs every check and logs before the phase fails on the first
+    that did not hold. Returns the phase's launches per kernel source."""
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch.bench import make_inputs
+    from vanishing_points_2017_tpu_torch.metrics import calc_auc
+    from vanishing_points_2017_tpu_torch.tools import (
+        eval_device_detector as ted, perturb_knife_edge as tke,
+        profile_detector as tpd, profile_e2e as tpe,
+        revalidate_detector as trv)
+
+    failed: list = []
+    check = checker(failed)
+    ref = np.load(TOOLS_REFERENCE)
+    cfg = pipe.cfg
+    reset(kernels_all)
+
+    # ---- knife edge: the pool's base margins, then the pinned probes
+    t0 = time.perf_counter()
+    scenes, images = ted.build_scene_set(SYN_COUNT)
+    pops = [tke.detect_device(pipe, cfg, img) for img in images]
+    base = tke.run_populations(pipe, cfg, [p[0] for p in pops],
+                               [p[1] for p in pops])
+    margins = base["rel_margin"]
+    picks = sorted(int(i) for i in np.argsort(margins)[:5])
+    log(f"knife edge: the card's 5 lowest-margin scenes {picks} (margins "
+        f"{[round(float(margins[i]), 5) for i in picks]}), JAX's "
+        f"{ref['picks'].tolist()} (margins "
+        f"{[round(float(ref['base_rel_margin'][i]), 5) for i in ref['picks']]}"
+        f"); pool median {float(np.median(margins)):.4f} (JAX "
+        f"{float(np.median(ref['base_rel_margin'])):.4f})")
+    sigma_norm = KNIFE_SIGMA_PX * 2.0 / 640
+    cfg_c = dataclasses.replace(cfg, horizon_consensus=KNIFE_CONSENSUS)
+    for mode, c in (("single", cfg), ("consensus", cfg_c)):
+        for j, i in enumerate(KNIFE_SCENES):
+            lps, masks = tke.jittered_populations(
+                np.random.default_rng(KNIFE_SEED), *pops[i], KNIFE_K,
+                sigma_norm, KNIFE_DROP)
+            res = tke.run_populations(pipe, c, lps, masks)
+            errs = ted.scene_horizon_errors([scenes[i]] * (KNIFE_K + 1),
+                                            res["hp1"], res["hp2"], 640)
+            flips = int((errs[1:] > KNIFE_GATE).sum())
+            jax_flips = int(ref[f"ke_{mode}_flips"][j])
+            row = tke.probe_row(f"scene_{i:02d}", res, errs)
+            log(f"  {mode:<9} {tke.row_line(row, KNIFE_K)}; JAX base "
+                f"{float(ref[f'ke_{mode}_errs'][j, 0]):.3f} flips "
+                f"{jax_flips}/{KNIFE_K} margin base "
+                f"{float(ref[f'ke_{mode}_rel_margin'][j, 0]):.3f}")
+            check(flips <= jax_flips, f"knife edge {mode} scene {i}: "
+                  f"{flips} of {KNIFE_K} flips, JAX {jax_flips}")
+    log(f"knife-edge probes: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the AUC decomposition: host LSD, device-full, ideal prior
+    t0 = time.perf_counter()
+    for path in ("host", "full", "ideal"):
+        r = ted.run_path(path, pipe, scenes, images, TOOLS_BATCH, 640)
+        jax_auc = float(ref[f"auc_{path}"])
+        far = [i for i in range(SYN_COUNT) if horizon_err(
+            r["hp1"][i], r["hp2"][i], ref[f"{path}_hp1"][i],
+            ref[f"{path}_hp2"][i]) > HORIZON_TOL]
+        note = ""
+        if path in ("host", "full"):
+            s_hp1, s_hp2 = syn_out["host" if path == "host" else "dev"]
+            same = (np.array_equal(r["hp1"], s_hp1)
+                    and np.array_equal(r["hp2"], s_hp2))
+            s_auc = calc_auc(ted.scene_horizon_errors(scenes, s_hp1, s_hp2,
+                                                      640), 0.25)[0]
+            note = (f"; synthetic phase (batch {SYN_BATCH}) AUC {s_auc:.5f}, "
+                    f"horizons {'bit-identical' if same else 'DIFFER'}")
+            check(same and s_auc == r["auc"], f"tools {path}: batch "
+                  f"{TOOLS_BATCH} differs from the synthetic phase's "
+                  f"batch {SYN_BATCH}")
+        log(f"{ted.path_line(path, r, SYN_COUNT)}; JAX {jax_auc:.5f}, "
+            f"card {r['auc']:.5f}; {len(far)} of {SYN_COUNT} horizons "
+            f"beyond {HORIZON_TOL} of JAX's {far}{note} ({card})")
+        check(abs(r["auc"] - jax_auc) <= AUC_TOL,
+              f"tools {path}: AUC {r['auc']} vs JAX {jax_auc}")
+        check(len(far) <= SYN_MAX_FAR, f"tools {path}: {len(far)} horizons "
+              "beyond the gate")
+    log(f"AUC decomposition: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the re-validation gate, as a user runs it on a detector change
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trv.main(["--skip_pins"])
+    for line in buf.getvalue().splitlines():
+        log(f"  {line}")
+    check(rc == 0 and "A real photos: SKIPPED" in buf.getvalue(),
+          f"revalidate_detector --skip_pins: exit {rc}")
+    log(f"re-validation: {time.perf_counter() - t0:.1f} s")
+
+    # ---- profiles (information only)
+    t0 = time.perf_counter()
+    log(f"detector sub-stages, b16 640^2, CUDA events ({card}):")
+    dev = pipe.device
+    tpd.profile(torch.from_numpy(make_inputs(16, 640, cfg.n_pad)[0]).to(dev),
+                iters=5, budgets=(cfg.det_max_records, 16384),
+                log=lambda m: log(f"  {m}"))
+    e2e = tpe.measure(dev, batches=(16, 32), iters=5)
+    log(f"profile_e2e ({card}): {json.dumps(e2e)}")
+    log(f"profiles: {time.perf_counter() - t0:.1f} s")
+
+    phase = {k.source: k.launches for k in kernels_all}
+    count(kernels_all, total, "tools", need=kernels_all)
+    if failed:
+        raise AssertionError(f"tools phase: {failed}")
+    return phase
+
+
 def bench_phase(card: str, pipe, kernels_all, total: dict) -> dict:
     """The bench's measurement at b32 / 640x640 on the card; -> its
     launches per kernel source. Runs every check and logs before the phase
@@ -1692,6 +1834,7 @@ def main() -> int:
     from vanishing_points_2017_tpu_torch.metrics import calc_auc
 
     syn, _ = synthetic_records(count=SYN_COUNT)
+    syn_out = {}
     for path, detect in (("host", False), ("dev", True)):
         # the benchmark's per-image lines go to a buffer, not to this log
         with tempfile.TemporaryDirectory() as tmp, \
@@ -1707,6 +1850,8 @@ def main() -> int:
         count(kernels_all, total, f"synthetic {path}",
               need=(sph_k,) if path == "host" else (ccl_k, sph_k))
         auc = calc_auc(errors, 0.25)[0]
+        syn_out[path] = tuple(np.stack([r[k] for r in res])
+                              for k in ("hp1", "hp2"))
         jax_auc = float(host_ref[f"auc_{path}"])
         far = []
         for i, r in enumerate(res):
@@ -1726,6 +1871,12 @@ def main() -> int:
         if len(far) > SYN_MAX_FAR:
             raise AssertionError(f"synthetic {path}: {len(far)} horizons "
                                  "beyond the gate")
+
+    # ---- the accuracy harnesses (tools/) on the same scenes, and the
+    # detector and end-to-end profiles
+    t0 = time.perf_counter()
+    per_tools = tools_phase(card, pipe, kernels_all, total, syn_out)
+    log(f"tools phase: {time.perf_counter() - t0:.1f} s")
 
     # ---- the throughput bench: its loops at b32 / 640^2
     t0 = time.perf_counter()
@@ -1776,6 +1927,7 @@ def main() -> int:
              launches_sharded=per_sharded[ccl_k.source],
              launches_bench=per_bench[ccl_k.source],
              launches_progressive=per_prog[ccl_k.source],
+             launches_tools=per_tools[ccl_k.source],
              ms_by_wide_grid={g: t[0] for g, t in wide_ms.items()},
              library_ms=None, **records["ccl_raster"]),
         dict(name="sphere_render", route="cuda",
@@ -1787,6 +1939,7 @@ def main() -> int:
              launches_sharded=per_sharded[sph_k.source],
              launches_bench=per_bench[sph_k.source],
              launches_progressive=per_prog[sph_k.source],
+             launches_tools=per_tools[sph_k.source],
              library_ms=None, **records["sphere_render"]),
     ]
     for k in kernel_info:
