@@ -54,9 +54,16 @@ GPU) is what runs:
   a ``.binaryproto``, both loaded through ``load_params_and_mean``, and the
   CNN's grids on the bundled scenes' sphere images bit-identical to those
   of the same densified parameters used directly;
-* K1's wide kernel (grids past 1024 columns): bit-exact on random planes
-  1025-4031 wide and on 720p / 1080p gradient grids (timed), and a
-  1280x720 frame through ``process_images``;
+* K1 at every width of its table (4, 8, 16 and 32 warps per image, the
+  group kernel past 5120): the kernel it launches (as the profiler names
+  it) changes at each width of ``K1_SWITCH_WIDTHS`` and nowhere between;
+  bit-exact on random planes at every such width +-1 (127-5121) and 8192
+  / 8193 at B = 1, 4 and 32, and on 720p / 1080p gradient grids at B = 4 and 32 (timed, with
+  the time of a row step); a 1280x720 frame through ``process_images``;
+  and the HD gate: the 4 1280x720 and 4 1920x1080 frames of
+  ``assets/examples/jax_reference_hd.npz`` (re-rendered from their seeds,
+  digests checked) through ``process_images`` at batch 4 per shape, at
+  most 1 of 8 horizons beyond 0.02 of JAX's;
 * the accuracy harnesses (``vanishing_points_2017_tpu_torch.tools``) on
   the same 50 scenes, against ``assets/examples/jax_reference_tools.npz``:
   the knife-edge flip protocol (K = 8 jitters of sigma 0.5 px, 2%
@@ -98,10 +105,14 @@ steps, ``launches_sharded`` the sharded serving runs' (all ranks),
 ``launches_bench`` the bench phase's (every loop, warm-up and stage pass),
 ``launches_progressive`` the progressive phase's two driver runs,
 ``launches_tools`` the tools phase's (probes, paths, gate and profiles),
-K1's ``ms_by_wide_grid`` its time at B = 4 on 720p and 1080p gradient
-grids, and ``bound_ms`` is the least time
-the card could take for the timed call's work (bytes over the memory
-rate or operations over the float32 rate, whichever is larger).
+``launches_hd`` the HD gate's, K1's ``ms_by_wide_grid`` its time at
+B = 4 and 32 on 720p and 1080p gradient grids (``plain_ms_by_wide_grid``
+the twin's at B = 4, ``bound_ms_by_wide_grid`` the bound) and
+``us_per_row_step`` the time of one row step there and on the main
+path's grid (ms over 8 half passes x H rows), and ``bound_ms`` is the
+least time the card could take for the timed call's work (bytes over
+the memory rate or operations over the float32 rate, whichever is
+larger).
 """
 
 from __future__ import annotations
@@ -114,6 +125,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -138,6 +150,8 @@ PROG_REFERENCE = os.path.join(ROOT, "assets", "examples",
 PROG_DIR = os.path.join(ROOT, "assets", "examples", "progressive")
 TOOLS_REFERENCE = os.path.join(ROOT, "assets", "examples",
                                "jax_reference_tools.npz")
+HD_REFERENCE = os.path.join(ROOT, "assets", "examples",
+                            "jax_reference_hd.npz")
 HORIZON_TOL = 0.02      # normalized horizon error vs the JAX reference
 AUC_TOL = 0.02          # the repo's AUC parity gate (BASELINE.md)
 K2_ATOL = 1e-4          # float image; only the f32 sum order differs
@@ -186,8 +200,20 @@ DENSE_STEPS, COMPACT_STEPS, DENSE_LR = 50, 12, 5e-4
 # used for K1's integer min/select operations too
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# K1's wide kernel (more than 1024 columns): random planes of these widths
-WIDE_WIDTHS = (1025, 1279, 1919, 2049, 4031)
+# K1's switch widths: the last width of each (warps, columns per lane)
+# variant of its width table (csrc/ccl_raster.cu, warps_for): 4 warps to
+# 1024, 8 to 2048, 16 to 4096, 32 to 5120, the group kernel past it. The
+# wide-grid phase checks on the card that the launched kernel changes at
+# each and nowhere between them.
+K1_SWITCH_WIDTHS = (128, 256, 384, 512, 640, 768, 896, 1024, 1280, 1536,
+                    1792, 2048, 2560, 3072, 3584, 4096, 5120)
+# K1's random planes: each switch width +-1, 720p's and 1080p's gradient
+# widths, 4031, 8192 and 8193 (the group kernel), at these batches;
+# the HD gate's batch and how many of its 8 horizons may lie beyond
+# HORIZON_TOL of JAX's (the EM's knife edge)
+WIDE_EXTRA = (1279, 1919, 4031, 8192, 8193)
+WIDE_BATCHES = (1, 4, 32)
+HD_BATCH, HD_MAX_FAR = 4, 1
 # the parallel phase: the tp CNN's grid against the single process (bf16
 # products, fc7's sums split over tp), the sharded lsim's N, and a
 # deadline per group of ranks
@@ -1048,43 +1074,149 @@ def caffe_phase(dev, card: str, cfg, sphere_u8) -> None:
         raise AssertionError("Caffe phase: see the line above")
 
 
-def wide_grid_phase(dev, card: str, pipe, kernels_all, total: dict,
-                    ld) -> dict:
-    """K1 past 1024 columns (its wide kernel): bit-exact against the twin
-    on random planes at WIDE_WIDTHS and on drawn-line 720p / 1080p
-    gradient grids at B = 4, timed there; then one 1280 x 720 frame
-    through ``process_images``. Returns the times by grid."""
+def hd_frames() -> dict:
+    """The HD reference's frames re-rendered from their seeds with the
+    port's generators: {(width, height): [frames]} in the file's order.
+    Raises when a frame's sha256 is not the committed one."""
+    import numpy as np
+
+    from vanishing_points_2017_tpu_torch.data import datasets as ds
+    from vanishing_points_2017_tpu_torch.models import synth
+
+    ref = np.load(HD_REFERENCE)
+    out: dict = {}
+    for seed, w, h, digest in zip(ref["seed"], ref["width"], ref["height"],
+                                  ref["sha256"]):
+        rng = np.random.default_rng(int(seed))
+        img = ds.render_scene_image_wh(synth.make_scene(rng), int(w), int(h),
+                                       rng)
+        if hashlib.sha256(img.tobytes()).hexdigest() != str(digest):
+            raise AssertionError(f"HD frame seed {seed}: sha256 differs")
+        out.setdefault((int(w), int(h)), []).append(img)
+    return out
+
+
+def k1_launched_kernels(ld, dev, widths) -> dict:
+    """The first kernel K1 launches at each of ``widths`` (B = 1, 2 rows,
+    one pass pair), as the profiler names it, template arguments and all:
+    {width: name}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    planes = [torch.zeros((1, 2, w), dtype=torch.int32, device=dev)
+              for w in widths]
+    ld.connected_components_cuda(planes[0], 2)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for pl in planes:
+            ld.connected_components_cuda(pl, 2)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [m.group(0) for e in events
+             if (m := re.search(r"ccl_half_pass\w*<[^>]*>", e.name))]
+    if len(names) != 2 * len(widths):
+        raise AssertionError(f"K1: the profiler saw {len(names)} launches "
+                             f"of 2 x {len(widths)}")
+    return dict(zip(widths, names[::2]))
+
+
+def k1_switch_faults(names: dict) -> list:
+    """What contradicts K1_SWITCH_WIDTHS in {width: launched kernel} (see
+    :func:`k1_launched_kernels`; each switch width +-1): no change of
+    kernel at a switch width, or one between two."""
+    faults = []
+    for s, nxt in zip(K1_SWITCH_WIDTHS, K1_SWITCH_WIDTHS[1:] + (None,)):
+        if names[s - 1] != names[s] or names[s] == names[s + 1]:
+            faults.append(f"K1: no switch of kernel at W={s}: "
+                          f"{names[s - 1]}, {names[s]}, {names[s + 1]}")
+        if nxt is not None and names[s + 1] != names[nxt]:
+            faults.append(f"K1: a switch of kernel between W={s + 1} and "
+                          f"{nxt}: {names[s + 1]}, {names[nxt]}")
+    return faults
+
+
+def wide_grid_phase(dev, card: str, pipe, kernels_all, total: dict, ld,
+                    k1_ms: float, k1_rows: int) -> tuple:
+    """K1 at every width of its table: the kernel it launches changes at
+    each of K1_SWITCH_WIDTHS and nowhere between; bit-exact against the
+    twin on random planes at every switch width +-1 and at WIDE_EXTRA, at
+    each of
+    WIDE_BATCHES, and on drawn-line 720p / 1080p gradient grids at B = 4
+    and 32, timed there (the twin once at B = 4); then one 1280 x 720
+    frame through ``process_images``; then the HD gate. ``k1_ms`` and
+    ``k1_rows`` are the main path's grid's time and rows. Returns K1's
+    (times, bounds) by grid, the twin's times, K1's microseconds per row
+    step by grid and the HD gate's launches."""
     import numpy as np
     import torch
 
     from vanishing_points_2017_tpu_torch.data.datasets import \
         render_scene_image_wh
+    from vanishing_points_2017_tpu_torch.data.io import \
+        normalized_horizon_error
     from vanishing_points_2017_tpu_torch.models import synth
 
     failed: list = []
     check = checker(failed)
     rng = np.random.default_rng(1)
-    for w in WIDE_WIDTHS:
-        packed = torch.from_numpy(rng.integers(0, 256, (2, 9, w)).astype(
+    widths = sorted({w + d for w in K1_SWITCH_WIDTHS for d in (-1, 0, 1)}
+                    | set(WIDE_EXTRA))
+    names = k1_launched_kernels(ld, dev, widths)
+    log("K1's kernel at each switch width and the next: " + ", ".join(
+        f"{w} {names[w]} -> {names[w + 1]}" for w in K1_SWITCH_WIDTHS))
+    for fault in k1_switch_faults(names):
+        check(False, fault)
+    bmax = max(WIDE_BATCHES)
+    for w in widths:
+        packed = torch.from_numpy(rng.integers(0, 256, (bmax, 9, w)).astype(
             np.int32)).to(dev)
         packed[1] = 0xFF  # every edge set: one component per row band
-        got = ld.connected_components_cuda(packed, 8)
-        n_bad = int((got != ld.connected_components_ref(packed, 8)).sum())
-        log(f"K1 B=2 (9, {w}): {n_bad} labels differ")
-        check(n_bad == 0, f"K1 not bit-exact at W={w}")
-    times = {}
+        packed[2] = 0     # none: every pixel its own
+        ref = ld.connected_components_ref(packed, 8)
+        bad = {}
+        for b in WIDE_BATCHES:
+            got = ld.connected_components_cuda(packed[:b].contiguous(), 8)
+            bad[b] = int((got != ref[:b]).sum())
+            check(bad[b] == 0, f"K1 not bit-exact at B={b}, W={w}")
+        log(f"K1 (9, {w}): labels differing from the twin at B = "
+            f"{', '.join(f'{b}: {n}' for b, n in bad.items())}")
+    times, plain = {}, {}
+    per_row = {f"B={BATCH} 639x639": k1_ms * 1e3 / (8 * k1_rows)}
     for width, height in ((1280, 720), (1920, 1080)):
         frames = [render_scene_image_wh(synth.make_scene(rng), width, height,
                                         rng) for _ in range(4)]
-        packed = packed_of(ld, torch.from_numpy(np.stack(frames)).to(dev))
-        got = ld.connected_components_cuda(packed, 8)
-        n_bad = int((got != ld.connected_components_ref(packed, 8)).sum())
-        ms = cuda_ms(lambda: ld.connected_components_cuda(packed, 8), 5)
-        b_ms, by = bound(2 * packed.numel() * 4, 6 * 8 * packed.numel())
-        times[f"{packed.shape[1]}x{packed.shape[2]}"] = (ms, b_ms, by)
-        log(f"K1 B=4 {tuple(packed.shape[1:])}: {n_bad} labels differ; "
-            f"kernel {ms:.3f} ms, bound {b_ms:.4f} ms ({by}) ({card})")
-        check(n_bad == 0, f"K1 not bit-exact on {tuple(packed.shape[1:])}")
+        p4 = packed_of(ld, torch.from_numpy(np.stack(frames)).to(dev))
+        got4 = ld.connected_components_cuda(p4, 8)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref4 = ld.connected_components_ref(p4, 8)
+        end.record()
+        torch.cuda.synchronize()
+        plain[f"4x{p4.shape[1]}x{p4.shape[2]}"] = start.elapsed_time(end)
+        n_bad = int((got4 != ref4).sum())
+        check(n_bad == 0, f"K1 not bit-exact on 4 x {tuple(p4.shape[1:])}")
+        p32 = p4.repeat(BATCH // 4, 1, 1)
+        n_bad32 = int((ld.connected_components_cuda(p32, 8)
+                       != got4.repeat(BATCH // 4, 1)).sum())
+        check(n_bad32 == 0, f"K1 at B={BATCH} on {tuple(p4.shape[1:])} "
+              "differs from B=4")
+        for pl, nb in ((p4, n_bad), (p32, n_bad32)):
+            ms = cuda_ms(lambda: ld.connected_components_cuda(pl, 8), 5)
+            b_ms, by = bound(2 * pl.numel() * 4, 6 * 8 * pl.numel())
+            key = f"{pl.shape[0]}x{pl.shape[1]}x{pl.shape[2]}"
+            times[key] = (ms, b_ms, by)
+            per_row[key] = ms * 1e3 / (8 * pl.shape[1])
+            twin = f", twin {plain[key]:.1f} ms" if key in plain else ""
+            log(f"K1 B={pl.shape[0]} {tuple(pl.shape[1:])}: {nb} labels "
+                f"differ; kernel {ms:.3f} ms = {per_row[key]:.3f} us per "
+                f"row step{twin}, bound {b_ms:.4f} ms ({by}) ({card})")
+    log("K1 us per row step: " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in per_row.items()))
     # a 1280 x 720 frame through the entry point users call
     frame = render_scene_image_wh(synth.make_scene(rng), 1280, 720, rng)
     reset(kernels_all)
@@ -1096,9 +1228,50 @@ def wide_grid_phase(dev, card: str, pipe, kernels_all, total: dict,
     log(f"1280x720 frame through process_images: {int(out['segment_mask'][0].sum())} "
         f"segments, {int(out['alive'][0].sum())} VPs, horizon finite {fin}")
     check(fin, "1280x720 frame: non-finite horizon")
+
+    # the HD gate: JAX's horizons on the same frames
+    ref = np.load(HD_REFERENCE)
+    by_shape = hd_frames()
+    reset(kernels_all)
+    runs = {}
+    for (width, height), frames in by_shape.items():
+        t0 = time.perf_counter()
+        runs[(width, height)] = [pipe.process_images(frames[i:i + HD_BATCH])
+                                 for i in range(0, len(frames), HD_BATCH)]
+        torch.cuda.synchronize()
+        log(f"HD {width}x{height}: {len(frames)} frames through "
+            f"process_images at batch {HD_BATCH} in "
+            f"{time.perf_counter() - t0:.2f} s, first batch included "
+            f"({card})")
+    per_hd = {k.source: k.launches for k in kernels_all}
+    count(kernels_all, total, "HD gate", need=kernels_all)
+    far, i = [], 0
+    for (width, height), outs in runs.items():
+        for o in outs:
+            for j in range(o["hp1"].shape[0]):
+                est = np.cross(*(o[k][j].cpu().double().numpy()
+                                 for k in ("hp1", "hp2")))
+                e = normalized_horizon_error(
+                    est, np.cross(ref["hp1"][i].astype(np.float64),
+                                  ref["hp2"][i].astype(np.float64)),
+                    width, height)
+                segs = int(o["segment_mask"][j].sum())
+                log(f"HD seed {int(ref['seed'][i])} ({width}x{height}): "
+                    f"horizon {e:.5f} from JAX's; {segs} segments (JAX "
+                    f"{int(ref['segments'][i])}), "
+                    f"{int(o['alive'][j].sum())} VPs")
+                check(bool(np.isfinite(est).all()),
+                      f"HD seed {int(ref['seed'][i])}: non-finite horizon")
+                if not e <= HORIZON_TOL:
+                    far.append(int(ref["seed"][i]))
+                i += 1
+    log(f"HD gate: {len(far)} of {i} horizons beyond {HORIZON_TOL} of JAX's "
+        f"{far}")
+    check(i == len(ref["seed"]), f"HD gate: {i} frames run")
+    check(len(far) <= HD_MAX_FAR, f"HD gate: {far} beyond {HORIZON_TOL}")
     if failed:
         raise AssertionError(f"wide-grid phase: {failed}")
-    return times
+    return times, plain, per_row, per_hd
 
 
 def tools_phase(card: str, pipe, kernels_all, total: dict,
@@ -1585,9 +1758,16 @@ def main() -> int:
                                  np.zeros((8, 8), np.uint8))
         for k, fut in zip(kernels_all, builds):
             log(f"build {k.source}: {fut.result():.2f} s")
-            for line in k.build_log.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
+            usage = kernels.ptxas_usage(k.build_log)
+            for u in usage:
+                log(f"  ptxas: {u['name']}: {u.get('registers')} registers, "
+                    f"{u.get('spill_stores')} bytes spill stores, "
+                    f"{u.get('spill_loads')} bytes spill loads")
+            spilled = [u["name"] for u in usage
+                       if u.get("spill_stores") or u.get("spill_loads")]
+            if spilled or not usage:
+                raise AssertionError(f"{k.source}: register spills in "
+                                     f"{spilled} (or no ptxas report)")
         lsd_build.result()
         jpeg_build.result()
     log(f"builds done in {time.perf_counter() - t0:.2f} s (host LSD and "
@@ -1752,9 +1932,10 @@ def main() -> int:
         f"B=4's; CNN stage b{BATCH} {cnn_ms:.3f} ms/batch (chunk "
         f"{batching.default_chunk(x4)})")
 
-    # ---- K1's wide kernel: grids past 1024 columns, a 1280x720 frame
+    # ---- K1 past 1024 columns, a 1280x720 frame and the HD gate
     t0 = time.perf_counter()
-    wide_ms = wide_grid_phase(dev, card, pipe, kernels_all, total, ld)
+    wide_ms, wide_plain, per_row, per_hd = wide_grid_phase(
+        dev, card, pipe, kernels_all, total, ld, k1_ms, packed.shape[1])
     log(f"wide-grid phase: {time.perf_counter() - t0:.1f} s")
 
     # ---- K2 at the host path's line buckets, B = 8: every slot holds a
@@ -1928,7 +2109,11 @@ def main() -> int:
              launches_bench=per_bench[ccl_k.source],
              launches_progressive=per_prog[ccl_k.source],
              launches_tools=per_tools[ccl_k.source],
+             launches_hd=per_hd[ccl_k.source],
              ms_by_wide_grid={g: t[0] for g, t in wide_ms.items()},
+             plain_ms_by_wide_grid=wide_plain,
+             bound_ms_by_wide_grid={g: t[1] for g, t in wide_ms.items()},
+             us_per_row_step=per_row,
              library_ms=None, **records["ccl_raster"]),
         dict(name="sphere_render", route="cuda",
              source="vanishing_points_2017_tpu_torch/csrc/sphere_render.cu",
@@ -1940,6 +2125,7 @@ def main() -> int:
              launches_bench=per_bench[sph_k.source],
              launches_progressive=per_prog[sph_k.source],
              launches_tools=per_tools[sph_k.source],
+             launches_hd=per_hd[sph_k.source],
              library_ms=None, **records["sphere_render"]),
     ]
     for k in kernel_info:

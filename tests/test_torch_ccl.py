@@ -96,12 +96,15 @@ def test_ccl_twin_on_torch_packing_matches_jax():
         assert np.array_equal(got[s], ref)
 
 
-def test_ccl_twin_bit_exact_past_1024_columns():
-    """A few rows 1100 wide, the width K1 takes its wide kernel for: the
-    twin's labels equal the JAX raster scan's (and the Pallas kernel's, which
-    pads the width to a multiple of 128)."""
-    rng = np.random.default_rng(1100)
-    h, w = 6, 1100
+@pytest.mark.parametrize("w", [1100, 1279, 1919, 2049, 4031])
+def test_ccl_twin_bit_exact_past_1024_columns(w):
+    """A few rows wider than 1024 columns, where K1 leaves its 4-warp
+    kernel (720p's and 1080p's gradient widths 1279 and 1919, 16 warps at
+    2049 and 4031): the twin's labels equal the JAX raster scan's, and at
+    1100 also the Pallas kernel's in interpret mode (which pads the width
+    to a multiple of 128; ~18 s a width, so once)."""
+    rng = np.random.default_rng(w)
+    h = 6
     ang = (np.arange(w) // 37 * 0.4)[None, :] + rng.normal(0, 0.2, (2, h, w))
     act = rng.uniform(size=(2, h, w)) < 0.8
     ux, uy = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
@@ -109,15 +112,18 @@ def test_ccl_twin_bit_exact_past_1024_columns():
                                     jnp.asarray(uy), COS_TOL))
     got = tld.connected_components(torch.from_numpy(packed.copy()),
                                    8).numpy()
-    pallas = np.asarray(connected_components_pallas_batch(
-        jnp.asarray(act), jnp.asarray(ux), jnp.asarray(uy), COS_TOL,
-        passes=8, interpret=True))
+    pallas = None
+    if w == 1100:
+        pallas = np.asarray(connected_components_pallas_batch(
+            jnp.asarray(act), jnp.asarray(ux), jnp.asarray(uy), COS_TOL,
+            passes=8, interpret=True))
     for s in range(2):
         ref = np.asarray(jld._connected_components(
             jnp.asarray(act[s]), jnp.asarray(ux[s]), jnp.asarray(uy[s]),
             COS_TOL, 8))
         assert np.array_equal(got[s], ref)
-        assert np.array_equal(got[s], pallas[s])
+        if pallas is not None:
+            assert np.array_equal(got[s], pallas[s])
     assert len(np.unique(got)) < 0.9 * got.size  # components span pixels
 
 

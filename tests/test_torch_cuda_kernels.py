@@ -9,6 +9,8 @@ conftest, which imports it, is skipped) with
 """
 
 import math
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +20,11 @@ from vanishing_points_2017_tpu_torch.models import cnn
 from vanishing_points_2017_tpu_torch.ops import lines_device as ld
 from vanishing_points_2017_tpu_torch.ops import sphere
 from vanishing_points_2017_tpu_torch.weights import params_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import (K1_SWITCH_WIDTHS, k1_launched_kernels,  # noqa: E402
+                        k1_switch_faults)
 
 pytestmark = pytest.mark.gpu
 
@@ -98,18 +105,46 @@ def test_ccl_kernel_bit_exact_on_dataset_grids(cuda, h, w):
 
 
 @pytest.mark.parametrize("w", [1, 31, 33, 129, 300, 639, 1024, 1025, 1279,
-                               1919, 2049, 4031])
+                               1919, 2049, 4031, 4096, 4097, 5120, 5121,
+                               8192, 8193])
 @pytest.mark.parametrize("h", [1, 9])
 @pytest.mark.parametrize("kind", ["random", "dense", "all", "none"])
 def test_ccl_kernel_bit_exact_on_planes(cuda, kind, h, w):
     """Lane and warp edges (W = 31, 33: a ragged last lane; 129, 300: a
-    ragged last warp), one column, the widest narrow grid, the wide kernel's
-    groups of 1024 columns (1025: one column in the second group; 1279,
-    1919: a 720p and a 1080p gradient grid; 2049, 4031: three and four
-    groups), one row, all-active and all-inactive planes."""
+    ragged last warp), one column, the widest 4-warp grid, the wider
+    register kernels (1025: 8 warps, 5 columns per lane; 1279, 1919: a
+    720p and a 1080p gradient grid; 2049, 4031, 4096: 16 warps; 4097,
+    5120: 32 warps), the group kernel past 5120 columns (5121: one column
+    in the sixth group of 1024; 8192, 8193), one row, all-active and
+    all-inactive planes."""
     packed = _plane(kind, 2, h, w).to(cuda)
     got = ld.connected_components_cuda(packed, 8)
     assert torch.equal(got, ld.connected_components_ref(packed, 8))
+
+
+def test_ccl_kernel_switches_at_the_switch_widths(cuda):
+    """The kernel K1 launches (as the profiler names it) changes at each
+    of chip_smoke's K1_SWITCH_WIDTHS and nowhere between them: one
+    kernel per (warps, columns per lane) of the width table, and the
+    group kernel past its last width."""
+    widths = sorted({s + d for s in K1_SWITCH_WIDTHS for d in (-1, 0, 1)})
+    names = k1_launched_kernels(ld, cuda, widths)
+    assert k1_switch_faults(names) == []
+    assert len(set(names.values())) == len(K1_SWITCH_WIDTHS) + 1
+
+
+@pytest.mark.parametrize("w", sorted({s + d for s in K1_SWITCH_WIDTHS
+                                      for d in (-1, 0, 1)}))
+def test_ccl_kernel_bit_exact_at_switch_widths(cuda, w):
+    """Every width where K1 changes its warps or columns per lane, +-1,
+    so every kernel of its width table, at B = 1, 4 and 32 (one block per
+    image: the batch must not change an image's labels)."""
+    packed = _plane("random", 32, 9, w, seed=w).to(cuda)
+    packed[1] = 0xFF
+    ref = ld.connected_components_ref(packed, 8)
+    for b in (1, 4, 32):
+        got = ld.connected_components_cuda(packed[:b].contiguous(), 8)
+        assert torch.equal(got, ref[:b]), f"B={b}"
 
 
 def test_sphere_kernel_matches_twin(cuda):

@@ -5,7 +5,10 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and bound with ``ctypes``. The build runs at first use, from the
 sources in this package only, into ``build/kernels/`` of the checkout; the
 library's file name carries a hash of its source and flags, so an edited
-kernel is rebuilt and a stale one is never loaded. Importing this module
+kernel is rebuilt and a stale one is never loaded. The compiler's report
+(``-Xptxas -v``: registers and spills per kernel) is kept beside the
+library as ``<library>.log`` and read back with it (``build_log``; a
+library without its report is built again). Importing this module
 builds nothing: the tests on a machine without a GPU import every module.
 
 Every C entry point launches on the stream it is given and returns
@@ -19,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -68,7 +72,7 @@ class CudaKernel:
             return self.build_seconds or 0.0
         t0 = time.perf_counter()
         path = self._lib_path()
-        if not os.path.isfile(path):
+        if not (os.path.isfile(path) and os.path.isfile(f"{path}.log")):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *self.flags, "-Xptxas", "-v", "-shared",
@@ -79,7 +83,13 @@ class CudaKernel:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {self.source}:\n"
                                    f"{self.build_log}")
+            with open(f"{tmp}.log", "w") as f:
+                f.write(self.build_log)
+            os.replace(f"{tmp}.log", f"{path}.log")
             os.replace(tmp, path)
+        else:
+            with open(f"{path}.log") as f:
+                self.build_log = f.read()
         self._lib = ctypes.CDLL(path)
         fn = getattr(self._lib, self.symbol)
         fn.argtypes = self.argtypes
@@ -100,6 +110,27 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc} "
                                f"({msg})")
         self.launches += 1
+
+
+def ptxas_usage(build_log: str) -> list[dict]:
+    """Per kernel function of an ``nvcc -Xptxas -v`` log: its mangled
+    ``name``, ``registers`` and ``spill_stores`` / ``spill_loads`` in
+    bytes."""
+    out: list[dict] = []
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append({"name": m.group(1)})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and out:
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

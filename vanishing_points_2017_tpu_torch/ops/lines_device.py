@@ -45,7 +45,8 @@ NEIGHBOUR_BITS = {(-1, -1): 0, (-1, 0): 1, (-1, 1): 2, (0, -1): 3,
 
 CCL_KERNEL = kernels.CudaKernel(
     "ccl_raster.cu", "ccl_raster_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    extra_flags=("-Xptxas", "--register-usage-level=10"))
 
 
 def _shift(a: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
