@@ -82,6 +82,17 @@ GPU) is what runs:
   other and to ``Pipeline.process_images`` on the same images, at most 2
   of 32 beyond 0.02 of JAX's on the same scenes
   (``assets/examples/jax_reference_bench.npz``), both kernels launched;
+* the EM against the JAX EM's own batch-1 trajectory
+  (``assets/examples/jax_reference_em.npz``,
+  ``scripts/make_jax_reference_em.py``): the 21 populations' JAX stage
+  inputs through ``em_and_horizon`` at the main path's chunk of 32 after
+  1, 2, 3 and 100 iterations, every end horizon within 0.02 of JAX's (the
+  agreement on iterations, alive sets and VPs is printed per checkpoint,
+  not gated: the card sums in other orders than either CPU run); then
+  bench scene 25 (device path) and P1026 (host path) traced stage by
+  stage against JAX's stage outputs (segments, K2 on JAX's lines, the CNN
+  on JAX's sphere image, the EM on JAX's inputs, the horizon), with the
+  first stage that departs by more than float noise;
 * ``parallel/``: ranks spawned over gloo that share the card run sharded
   serving on the scenes tiled to b32 at (dp, tp) = (2, 1) (every output
   equal to the single-process run's), (1, 2) and (2, 2) (CNN grid within
@@ -105,7 +116,9 @@ steps, ``launches_sharded`` the sharded serving runs' (all ranks),
 ``launches_bench`` the bench phase's (every loop, warm-up and stage pass),
 ``launches_progressive`` the progressive phase's two driver runs,
 ``launches_tools`` the tools phase's (probes, paths, gate and profiles),
-``launches_hd`` the HD gate's, K1's ``ms_by_wide_grid`` its time at
+``launches_hd`` the HD gate's, ``launches_em_trajectory`` the
+em-trajectory phase's (the traced frames' own paths and K2 on JAX's
+lines), K1's ``ms_by_wide_grid`` its time at
 B = 4 and 32 on 720p and 1080p gradient grids (``plain_ms_by_wide_grid``
 the twin's at B = 4, ``bound_ms_by_wide_grid`` the bound) and
 ``us_per_row_step`` the time of one row step there and on the main
@@ -152,6 +165,8 @@ TOOLS_REFERENCE = os.path.join(ROOT, "assets", "examples",
                                "jax_reference_tools.npz")
 HD_REFERENCE = os.path.join(ROOT, "assets", "examples",
                             "jax_reference_hd.npz")
+EM_REFERENCE = os.path.join(ROOT, "assets", "examples",
+                            "jax_reference_em.npz")
 HORIZON_TOL = 0.02      # normalized horizon error vs the JAX reference
 AUC_TOL = 0.02          # the repo's AUC parity gate (BASELINE.md)
 K2_ATOL = 1e-4          # float image; only the f32 sum order differs
@@ -227,6 +242,14 @@ RANK_TIMEOUT = 300
 KNIFE_SCENES, KNIFE_K, KNIFE_SEED = (12, 15, 27, 31, 38), 8, 11
 KNIFE_SIGMA_PX, KNIFE_DROP, KNIFE_GATE = 0.5, 0.02, 0.10
 KNIFE_CONSENSUS, TOOLS_BATCH = 8, 10
+# the em-trajectory phase: the oracle's checkpoints (num_iter), the VP
+# agreement it prints (1 - |cos|), the bench scene it traces, and float
+# noise per traced stage: the CPU detector test's endpoint gap
+# (tests/test_torch_detector.py, normalized units; the count may differ
+# by 1) and the bf16 CNN test's grid gate (tests/test_torch_cnn.py)
+EM_CHECKPOINTS = (("it1", 1), ("it2", 2), ("it3", 3), ("end", 100))
+EM_VP_TOL, EM_BENCH_SCENE = 1e-6, 25
+SEG_GAP_TOL, GRID_TOL = 1e-3, 2e-2
 
 
 def log(msg: str) -> None:
@@ -261,8 +284,9 @@ def checker(failed: list):
     return check
 
 
-def horizon_err(hp1, hp2, ref_hp1, ref_hp2) -> float:
-    """Normalized horizon error (640x640) between two (hp1, hp2) pairs."""
+def horizon_err(hp1, hp2, ref_hp1, ref_hp2, shape=(640, 640)) -> float:
+    """Normalized horizon error between two (hp1, hp2) pairs, at an
+    image's (width, height)."""
     import numpy as np
     import torch
 
@@ -274,7 +298,7 @@ def horizon_err(hp1, hp2, ref_hp1, ref_hp2) -> float:
                           for x in (a, b)))
 
     return normalized_horizon_error(line(hp1, hp2), line(ref_hp1, ref_hp2),
-                                    640, 640)
+                                    *shape)
 
 
 def k2_diff(got, ref):
@@ -1455,6 +1479,183 @@ def bench_phase(card: str, pipe, kernels_all, total: dict) -> dict:
     return launches
 
 
+def _segment_gap(ref_seg, got_seg) -> float:
+    """Max over ``ref_seg`` of the distance (largest coordinate, endpoint
+    order free) to the closest segment of ``got_seg``; inf if none."""
+    import numpy as np
+
+    if len(got_seg) == 0:
+        return math.inf if len(ref_seg) else 0.0
+    worst = 0.0
+    for s in ref_seg:
+        d1 = np.abs(got_seg - s).max(axis=1)
+        d2 = np.abs(got_seg - s[[2, 3, 0, 1]]).max(axis=1)
+        worst = max(worst, float(np.minimum(d1, d2).min()))
+    return worst
+
+
+def em_trajectory_phase(card: str, pipe, kernels_all, total: dict) -> dict:
+    """The port's EM against the JAX EM's own batch-1 trajectory
+    (``assets/examples/jax_reference_em.npz``): the 21 populations on JAX's
+    stage inputs through ``em_and_horizon`` at the main path's chunk, at
+    ``num_iter`` = 1, 2, 3 and 100 (every end horizon within HORIZON_TOL
+    of JAX's; the agreement on iterations, alive sets and VPs is printed,
+    not gated: the card's reductions run in other orders than either CPU
+    run); then the stage-by-stage trace of bench scene 25 (device path)
+    and P1026 (host path) against JAX's stage outputs, one line per stage
+    and the first stage that departs by more than float noise. ->
+    the phase's launches per kernel source."""
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch.bench import make_inputs
+    from vanishing_points_2017_tpu_torch.em import EMConfig
+    from vanishing_points_2017_tpu_torch.em.consensus import em_and_horizon
+    from vanishing_points_2017_tpu_torch.em.horizon import \
+        triplet_score_margin
+    from vanishing_points_2017_tpu_torch.models import cnn as cnn_mod
+    from vanishing_points_2017_tpu_torch.ops import sphere
+
+    failed: list = []
+    check = checker(failed)
+    ref = dict(np.load(EM_REFERENCE))
+    cfg, dev = pipe.cfg, pipe.device
+    hz = dict(maxbest=cfg.maxbest, theta_vmin=cfg.theta_vmin,
+              pos_gate_ideal_tol=cfg.horizon_pos_gate_tol)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    reset(kernels_all)
+
+    def run_em(inputs, num_iter=100):
+        """The port's EM and horizon on JAX's stage inputs (l, lp, grid,
+        sphere, lmask with a batch dim)."""
+        l, lp, grid, sph, m = (t(a) for a in inputs)
+        return em_and_horizon(l, lp, grid, sph.float(), m,
+                              EMConfig(num_iter=num_iter), **hz)
+
+    def agree(em, tag, idx):
+        """(same iterations, same alive set, and VPs within EM_VP_TOL)."""
+        it = em.iterations.cpu().numpy() == ref[f"{tag}_iterations"][idx]
+        alive = em.alive.cpu().numpy()
+        same = (alive == ref[f"{tag}_alive"][idx]).all(-1)
+        cos = np.abs(np.sum(em.vp.cpu().double().numpy()
+                            * ref[f"{tag}_vp"][idx], -1))
+        vp_ok = np.where(alive & same[:, None], 1.0 - cos, 0.0).max(-1) \
+            <= EM_VP_TOL
+        return it, same, it & same & vp_ok
+
+    # ---- the 21 populations at the main path's chunk
+    t0 = time.perf_counter()
+    names = [str(n) for n in ref["names"]]
+    idx = np.arange(len(names))
+    pops = [ref[k] for k in ("l", "lp", "grid", "sphere", "lmask")]
+    for tag, num_iter in EM_CHECKPOINTS:
+        em, h = run_em(pops, num_iter)
+        it, alive, full = agree(em, tag, idx)
+        log(f"em-trajectory {tag} (num_iter {num_iter}): iterations equal "
+            f"on {int(it.sum())} of {len(names)}, alive sets on "
+            f"{int(alive.sum())}, all three (VPs within {EM_VP_TOL}) on "
+            f"{int(full.sum())}; parting: "
+            f"{[names[i] for i in np.flatnonzero(~full)]} ({card})")
+    errs = [horizon_err(h[0][i], h[1][i], ref["hp1"][i], ref["hp2"][i])
+            for i in idx]
+    far = [names[i] for i in idx if errs[i] > HORIZON_TOL]
+    log(f"em-trajectory: end horizons within {max(errs):.5f} of JAX's "
+        f"batch-1 horizons (beyond {HORIZON_TOL}: {far}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(not far, f"em-trajectory: horizons {far} beyond {HORIZON_TOL}")
+
+    # ---- the traced frames, stage by stage against JAX's stage outputs
+    t0 = time.perf_counter()
+    imgs = make_inputs(BATCH, 640, cfg.n_pad)[0]
+    own = pipe.process_images(list(imgs))
+    bundles = [pipe.ingest(os.path.join(PROG_DIR, f"{name}.jpg"))
+               for name in PROG_PHOTOS]
+    own_host = pipe.process_batch(bundles)
+    bench_ref, prog_ref = np.load(BENCH_REFERENCE), np.load(PROG_REFERENCE)
+    frames = {
+        "bench25": dict(
+            seg=own["segments"][EM_BENCH_SCENE].cpu().numpy(),
+            mask=own["segment_mask"][EM_BENCH_SCENE].cpu().numpy(),
+            out={k: v[EM_BENCH_SCENE:EM_BENCH_SCENE + 1]
+                 for k, v in own.items()},
+            gate=(bench_ref["hp1"][EM_BENCH_SCENE],
+                  bench_ref["hp2"][EM_BENCH_SCENE]), shape=(640, 640)),
+        "p1026": dict(
+            seg=bundles[0]["lp"], mask=bundles[0]["lmask"],
+            out={k: v[:1] for k, v in own_host.items()},
+            gate=(prog_ref["york_hp1"][0], prog_ref["york_hp2"][0]),
+            shape=(640, 480)),
+    }
+    for name, fr in frames.items():
+        p = f"{name}_"
+        herr = lambda *hps: horizon_err(*hps, shape=fr["shape"])
+        stages = []
+        # the detector: the port's own segments against JAX's
+        js = ref[p + "segments"][ref[p + "segment_mask"]]
+        ts = fr["seg"][fr["mask"]]
+        gap = max(_segment_gap(js, ts), _segment_gap(ts, js))
+        what = (f"{len(ts)} vs JAX's {len(js)}, largest endpoint gap "
+                f"{gap:.3g} ({gap * max(fr['shape']) / 2:.3g} px)")
+        stages.append(("segments", abs(len(ts) - len(js)) > 1 or
+                       gap > SEG_GAP_TOL, what))
+        # the render: K2 on JAX's own lines against JAX's uint8 image
+        l, m = t(ref[p + "l"])[None], t(ref[p + "segment_mask"])[None]
+        img = sphere.sphere_image_uint8(l, m, size=cfg.sphere_size)
+        du8 = (img[0].int() - t(ref[p + "sphere"]).int()).abs()
+        share = float((du8 > 0).float().mean())
+        stages.append(("sphere", share > K2_U8_FRAC or int(du8.max()) > 1,
+                       f"K2 on JAX's lines: {int((du8 > 0).sum())} of "
+                       f"{du8.numel()} uint8 pixels differ (max step "
+                       f"{int(du8.max())})"))
+        # the CNN on JAX's own sphere image against JAX's grid
+        with torch.inference_mode():
+            grid = pipe.model(cnn_mod.preprocess(t(ref[p + "sphere"])[None],
+                                                 pipe.mean))
+        gd = float((grid[0].float() - t(ref[p + "grid"])).abs().max())
+        stages.append(("grid", gd > GRID_TOL,
+                       f"CNN on JAX's sphere image: largest difference "
+                       f"{gd:.3g} (gate {GRID_TOL})"))
+        # the EM on JAX's own stage inputs
+        em, h = run_em([ref[p + k][None] for k in (
+            "l", "segments", "grid", "sphere", "segment_mask")])
+        it = int(em.iterations[0])
+        same = bool((em.alive[0].cpu().numpy() == ref[p + "alive"]).all())
+        stages.append(("em", it != int(ref[p + "iterations"]) or not same,
+                       f"on JAX's inputs: {it} iterations vs JAX's "
+                       f"{int(ref[p + 'iterations'])}, alive set "
+                       f"{'equal' if same else 'differs'}"))
+        e_jax_in = herr(h[0][0], h[1][0], ref[p + "hp1"], ref[p + "hp2"])
+        own_out = fr["out"]
+        e_own = herr(own_out["hp1"][0], own_out["hp2"][0], ref[p + "hp1"],
+                     ref[p + "hp2"])
+        e_gate = herr(own_out["hp1"][0], own_out["hp2"][0], *fr["gate"])
+        margins = [float(triplet_score_margin(*vca, **hz)[2][0]) for vca in (
+            [t(ref[p + k])[None] for k in ("vp", "counts", "alive")],
+            (em.vp, em.counts, em.alive),
+            (own_out["vp"], own_out["counts"], own_out["alive"]))]
+        stages.append(("horizon", e_jax_in > HORIZON_TOL,
+                       f"from JAX's inputs {e_jax_in:.5f} of JAX's; the "
+                       f"port's own path {e_own:.5f} of JAX's batch-1 "
+                       f"horizon, {e_gate:.5f} of the gate's reference; "
+                       f"triplet margins (s1 - s2) / s1: JAX's EM "
+                       f"{margins[0]:.5f}, the port's on JAX's inputs "
+                       f"{margins[1]:.5f}, the port's own path "
+                       f"{margins[2]:.5f}"))
+        for stage, departs, what in stages:
+            log(f"trace {name} {stage}: {what}"
+                f"{' DEPARTS' if departs else ''} ({card})")
+        first = next((s for s, d, _ in stages if d), None)
+        log(f"trace {name}: first stage that departs from JAX's by more "
+            f"than float noise: {first or 'none'}")
+    log(f"em-trajectory traces: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    phase = {k.source: k.launches for k in kernels_all}
+    count(kernels_all, total, "em-trajectory", need=kernels_all)
+    if failed:
+        raise AssertionError(f"em-trajectory phase: {failed}")
+    return phase
+
+
 def _rank_setup(init_method: str):
     """A rank of the parallel phase: gloo over the shared card, the kernels
     loaded from the builds under build/, the shipped weights, and the four
@@ -2064,6 +2265,12 @@ def main() -> int:
     per_bench = bench_phase(card, pipe, kernels_all, total)
     log(f"bench phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- the EM against JAX's own batch-1 trajectory, and the traces of
+    # bench scene 25 and P1026 stage by stage
+    t0 = time.perf_counter()
+    per_em = em_trajectory_phase(card, pipe, kernels_all, total)
+    log(f"em-trajectory phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- the training path: parity with JAX, dense and compact training
     # at b32, and the two drivers
     t0 = time.perf_counter()
@@ -2110,6 +2317,7 @@ def main() -> int:
              launches_progressive=per_prog[ccl_k.source],
              launches_tools=per_tools[ccl_k.source],
              launches_hd=per_hd[ccl_k.source],
+             launches_em_trajectory=per_em[ccl_k.source],
              ms_by_wide_grid={g: t[0] for g, t in wide_ms.items()},
              plain_ms_by_wide_grid=wide_plain,
              bound_ms_by_wide_grid={g: t[1] for g, t in wide_ms.items()},
@@ -2126,6 +2334,7 @@ def main() -> int:
              launches_progressive=per_prog[sph_k.source],
              launches_tools=per_tools[sph_k.source],
              launches_hd=per_hd[sph_k.source],
+             launches_em_trajectory=per_em[sph_k.source],
              library_ms=None, **records["sphere_render"]),
     ]
     for k in kernel_info:

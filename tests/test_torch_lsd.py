@@ -1,7 +1,8 @@
 """The port's own LSD source and the name of its library: the copy is the
 JAX package's source byte for byte, and a library built with
-``-march=native`` is named after the host CPU, so a ``build/`` carried to
-another machine rebuilds instead of loading code made for the first."""
+``-march=native`` is named after the host CPU, and every library after
+the g++ that built it, so a ``build/`` carried to another machine rebuilds
+instead of loading code made for the first."""
 
 import os
 
@@ -44,3 +45,48 @@ def test_native_target_is_gxx_resolution_of_march_native():
     assert b"-march=" in target and target == hostbuild.native_target()
     tlsd.detect_line_segments(np.zeros((16, 16)))
     assert os.path.isfile(tlsd._lib_path())
+
+
+def test_library_name_follows_the_compiler(monkeypatch):
+    """Faked g++ versions give other library names, with the native flags
+    and without them: a library another g++ built is never loaded."""
+    portable = ("-O3", "-shared", "-fPIC")
+    names = set()
+    for gxx in (b"g++ A", b"g++ B"):
+        monkeypatch.setattr(hostbuild, "compiler", lambda g=gxx: g)
+        names |= {tlsd._lib_path(), hostbuild.library_path(
+            tlsd.SOURCE, portable, tlsd.BUILD_DIR, "liblsd")}
+    assert len(names) == 4
+
+
+def test_carried_builds_give_this_hosts_segments(tmp_path):
+    """``scripts/compare_lsd_flags.py``: the libraries ``--export`` writes,
+    read back by ``--carried`` on the same host, give the segments of the
+    builds made here under every flag set (P1026), the source is the JAX
+    package's and the grayscale image the same; and a build without fused
+    multiply-adds keeps bundled scene 1's endpoints to 1e-9 of the JAX
+    binding's flags (LSD's docstring: 3.4e-13 px apart on an FMA host)."""
+    import importlib.util
+
+    from vanishing_points_2017_tpu_torch.data import io as dio
+
+    spec = importlib.util.spec_from_file_location(
+        "compare_lsd_flags",
+        os.path.join(ROOT, "scripts", "compare_lsd_flags.py"))
+    cmp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cmp)
+    cmp.export(str(tmp_path))
+    out = cmp.compare(str(tmp_path))
+    assert out["same_source"] and out["same_gray"]
+    assert out["host"] == out["carried_host"]
+    assert set(out["rows"]) == set(cmp.VARIANTS)
+    for row in out["rows"].values():
+        assert row["n_here"] == row["n_carried"] > 0
+        assert row["here_carried"] == 0.0
+    assert cmp._build("native") == tlsd._lib_path()
+    img = dio.rgb2gray(dio.load_image(os.path.join(
+        ROOT, "assets", "examples", "scene_1.png"))) * 255.0
+    other = cmp.detect(cmp._build("nocontract"), img)
+    native = tlsd.detect_line_segments(img)
+    assert other.shape == native.shape
+    np.testing.assert_allclose(other[:, :4], native[:, :4], rtol=0, atol=1e-9)

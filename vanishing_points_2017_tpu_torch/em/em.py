@@ -134,8 +134,22 @@ def _pairwise_vp_angles(v: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, ang, 10.0)
 
 
+class _State(NamedTuple):
+    """The loop state of a batch: iteration, VPs before and after the
+    M-step, log variances, alive slots, and the per-image done / empty
+    flags."""
+
+    i: torch.Tensor
+    v_cur: torch.Tensor
+    v_next: torch.Tensor
+    log_s: torch.Tensor
+    alive: torch.Tensor
+    done: torch.Tensor
+    empty: torch.Tensor
+
+
 class _Ctx(NamedTuple):
-    """Per-call constants shared by the E-steps."""
+    """Per-call constants: the E-steps' inputs and the log-variance cap."""
 
     pdfpar: prob.PDFParams
     l: torch.Tensor
@@ -145,6 +159,7 @@ class _Ctx(NamedTuple):
     lsim: torch.Tensor
     langles: torch.Tensor
     cfg: EMConfig
+    log_max_stdd: float
 
     def estep(self, v, alive, log_s):
         p = prob.calc_probabilities(self.pdfpar, v, alive, self.l, self.lp,
@@ -260,15 +275,15 @@ def _split_best_vp(v_cur, log_s, alive, w, go, ctx: _Ctx):
     return v_out, log_s_out, alive | is_free
 
 
-def _finalize(i, v_cur, v_next, log_s, alive, empty, ctx: _Ctx) -> EMResult:
+def _finalize(st: _State, ctx: _Ctx) -> EMResult:
     """The reference's convergence block: final merge at 10x threshold,
     per-VP refit from argmax-assigned lines, uniqueness filter, outlier
     counting and iterative min-line pruning."""
+    i, v_cur, v_next, log_s, alive, _, empty = st
     cfg = ctx.cfg
     b, ms, _ = v_cur.shape
     dev = v_cur.device
     slots = torch.arange(ms, device=dev)[None]
-    log_max_stdd = _f32log(cfg.max_stdd)
     go = ~empty
 
     if cfg.do_merge:
@@ -282,7 +297,7 @@ def _finalize(i, v_cur, v_next, log_s, alive, empty, ctx: _Ctx) -> EMResult:
     new_vps, vp_ok = wmod.calc_new_vanishing_point(
         ctx.l, torch.where(assigned, w, 0.0))
     s_log_new = torch.clamp(_s_update_log(p.lvsq.transpose(1, 2), p.p_vl),
-                            max=log_max_stdd)
+                            max=ctx.log_max_stdd)
     upd = alive & has_lines
     v_next = torch.where((upd & vp_ok)[..., None], new_vps, v_next)
     bad_s = torch.isnan(s_log_new) | (s_log_new < LOG_S_THRESH)
@@ -329,15 +344,10 @@ def _finalize(i, v_cur, v_next, log_s, alive, empty, ctx: _Ctx) -> EMResult:
         valid=valid)
 
 
-def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
-                             cnn_response: torch.Tensor,
-                             sphere_image: torch.Tensor, lmask: torch.Tensor,
-                             cfg: EMConfig = EMConfig()) -> EMResult:
-    """Run the full EM on a batch.
-
-    l (B, N, 3) homogeneous lines (row-normalized here), lp (B, N, 4)
-    segments, cnn_response (B, 20, 20) sigmoid grids, sphere_image
-    (B, S, S) in Agg orientation, lmask (B, N) validity."""
+def _setup(l, lp, cnn_response, sphere_image, lmask, cfg: EMConfig):
+    """The per-call constants and the loop's first state (initial VPs
+    from the CNN maxima, pruned to those with >= 3 inliers) ->
+    (_State, _Ctx)."""
     b, n, _ = l.shape
     ms = cfg.m_slots
     f32 = torch.float32
@@ -357,15 +367,14 @@ def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
         lweight = torch.ones((b, n), dtype=f32, device=dev)
     lweight = torch.where(lmask, lweight, 0.0)
     pdfpar = prob.pdf_params(cnn_response.to(f32))
-    ctx = _Ctx(pdfpar, l, lp, lmask, lweight, lsim, langles, cfg)
+    ctx = _Ctx(pdfpar, l, lp, lmask, lweight, lsim, langles, cfg,
+               _f32log(cfg.max_stdd))
 
     v0, alive = init_vps.find_initial_vps(sphere_image, cnn_response.to(f32),
                                           cfg.num_init_vp, ms)
     sigma = torch.tensor(pdfpar.sigma, dtype=f32)
     log_s = torch.full((b, ms), float(torch.log(sigma * cfg.s_init_factor)),
                        dtype=f32, device=dev)
-    log_max_stdd = _f32log(cfg.max_stdd)
-    slots = torch.arange(ms, device=dev)[None]
 
     # ---- initial prune: VPs with < 3 inliers (hardcoded 3, ref line 250)
     _, w0 = ctx.estep(v0, alive, log_s)
@@ -374,66 +383,84 @@ def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
         thresh=cfg.outlier_thresh)
     alive = alive & (counts0 >= 3)
 
-    i = torch.zeros(b, dtype=torch.int64, device=dev)
-    v_cur, v_next = v0, torch.zeros_like(v0)
-    done = torch.zeros(b, dtype=torch.bool, device=dev)
-    empty = torch.zeros(b, dtype=torch.bool, device=dev)
+    flag = torch.zeros(b, dtype=torch.bool, device=dev)
+    return _State(torch.zeros(b, dtype=torch.int64, device=dev), v0,
+                  torch.zeros_like(v0), log_s, alive, flag, flag), ctx
+
+
+def _iteration(st: _State, ctx: _Ctx) -> _State:
+    """One pass of the loop body for every image not yet done: the split
+    move when due, the E-step, the M-step (weighted TLS refit and
+    variance update), the periodic merge when due, the buffer swap."""
+    cfg, l = ctx.cfg, ctx.l
+    i, v_cur, v_next, log_s, alive, done, empty = st
+    b = l.shape[0]
     freq = cfg.split_merge_freq
-    while not bool(done.all()):
-        empty_now = torch.sum(alive, dim=1) == 0
-        go = ~done & ~empty_now
-        phase = (torch.remainder(i, freq) == 0) & (i > 0)
-        vc, ls, al = v_cur, log_s, alive
+    empty_now = torch.sum(alive, dim=1) == 0
+    go = ~done & ~empty_now
+    phase = (torch.remainder(i, freq) == 0) & (i > 0)
+    vc, ls, al = v_cur, log_s, alive
 
-        # ---- split move (every split_merge_freq iterations, 0 < i < 100)
-        if cfg.do_split:
-            split_due = go & phase & (i < SPLIT_MERGE_IT)
-            if bool(split_due.any()):
-                _, w_s = ctx.estep(vc, al, ls)
-                vc, ls, al = _split_best_vp(vc, ls, al, w_s, split_due, ctx)
+    # ---- split move (every split_merge_freq iterations, 0 < i < 100)
+    if cfg.do_split:
+        split_due = go & phase & (i < SPLIT_MERGE_IT)
+        if bool(split_due.any()):
+            _, w_s = ctx.estep(vc, al, ls)
+            vc, ls, al = _split_best_vp(vc, ls, al, w_s, split_due, ctx)
 
-        # ---- E-step + M-step: weighted TLS refit + variance update
-        p, w = ctx.estep(vc, al, ls)
-        if cfg.do_iterations:
-            new_vps, vp_ok = wmod.calc_new_vanishing_point(l, w)
-            s_log_new = torch.clamp(_s_update_log(p.lvsq.transpose(1, 2),
-                                                  p.p_vl),
-                                    LOG_S_THRESH, log_max_stdd)
-            s_nan = torch.isnan(s_log_new)
-            v_next2 = torch.where((al & vp_ok)[..., None], new_vps, vc)
-            log_s2 = torch.where(al & vp_ok, s_log_new, ls)
-            err = _vp_change(vc, v_next2)
-            contributes = al & vp_ok & ~s_nan
-            max_err = torch.amax(torch.where(contributes, err, 0.0), dim=1)
-            removed = al & (~vp_ok | s_nan | (contributes & (err > 1.5)))
-            alive2 = al & ~removed
-        else:
-            v_next2, log_s2, alive2 = vc, ls, al
-            max_err = torch.zeros(b, dtype=f32, device=dev)
-        vn = _sel(go, v_next2, v_next)
-        ls = _sel(go, log_s2, ls)
-        al = _sel(go, alive2, al)
-        converged = ((max_err < cfg.final_convergence) | (i == cfg.num_iter - 1)
-                     | (not cfg.do_iterations))
+    # ---- E-step + M-step: weighted TLS refit + variance update
+    p, w = ctx.estep(vc, al, ls)
+    if cfg.do_iterations:
+        new_vps, vp_ok = wmod.calc_new_vanishing_point(l, w)
+        s_log_new = torch.clamp(_s_update_log(p.lvsq.transpose(1, 2),
+                                              p.p_vl),
+                                LOG_S_THRESH, ctx.log_max_stdd)
+        s_nan = torch.isnan(s_log_new)
+        v_next2 = torch.where((al & vp_ok)[..., None], new_vps, vc)
+        log_s2 = torch.where(al & vp_ok, s_log_new, ls)
+        err = _vp_change(vc, v_next2)
+        contributes = al & vp_ok & ~s_nan
+        max_err = torch.amax(torch.where(contributes, err, 0.0), dim=1)
+        removed = al & (~vp_ok | s_nan | (contributes & (err > 1.5)))
+        alive2 = al & ~removed
+    else:
+        v_next2, log_s2, alive2 = vc, ls, al
+        max_err = torch.zeros(b, dtype=torch.float32, device=l.device)
+    vn = _sel(go, v_next2, v_next)
+    ls = _sel(go, log_s2, ls)
+    al = _sel(go, alive2, al)
+    converged = ((max_err < cfg.final_convergence) | (i == cfg.num_iter - 1)
+                 | (not cfg.do_iterations))
 
-        # ---- periodic merge (only when not converged this iteration)
-        if cfg.do_merge:
-            merge_due = (go & ~converged & phase
-                         & (i <= SPLIT_MERGE_IT + freq))
-            if bool(merge_due.any()):
-                vn, ls, al = _merge_vps(vn, ls, al, cfg.merge_thresh,
-                                        merge_due, ctx)
+    # ---- periodic merge (only when not converged this iteration)
+    if cfg.do_merge:
+        merge_due = (go & ~converged & phase
+                     & (i <= SPLIT_MERGE_IT + freq))
+        if bool(merge_due.any()):
+            vn, ls, al = _merge_vps(vn, ls, al, cfg.merge_thresh,
+                                    merge_due, ctx)
 
-        # buffer swap for the next iteration; images already done keep
-        # their whole state, as under a vmapped while_loop
-        swap = go & ~converged
-        run = ~done
-        i = torch.where(swap, i + 1, i)
-        v_cur = _sel(run, _sel(swap, vn, vc), v_cur)
-        v_next = _sel(run, vn, v_next)
-        log_s = _sel(run, ls, log_s)
-        alive = _sel(run, al, alive)
-        empty = empty | (run & empty_now)
-        done = done | (go & converged) | empty_now
+    # buffer swap for the next iteration; images already done keep
+    # their whole state, as under a vmapped while_loop
+    swap = go & ~converged
+    run = ~done
+    return _State(i=torch.where(swap, i + 1, i),
+                  v_cur=_sel(run, _sel(swap, vn, vc), v_cur),
+                  v_next=_sel(run, vn, v_next), log_s=_sel(run, ls, log_s),
+                  alive=_sel(run, al, alive), done=done | (go & converged)
+                  | empty_now, empty=empty | (run & empty_now))
 
-    return _finalize(i, v_cur, v_next, log_s, alive, empty, ctx)
+
+def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
+                             cnn_response: torch.Tensor,
+                             sphere_image: torch.Tensor, lmask: torch.Tensor,
+                             cfg: EMConfig = EMConfig()) -> EMResult:
+    """Run the full EM on a batch.
+
+    l (B, N, 3) homogeneous lines (row-normalized here), lp (B, N, 4)
+    segments, cnn_response (B, 20, 20) sigmoid grids, sphere_image
+    (B, S, S) in Agg orientation, lmask (B, N) validity."""
+    st, ctx = _setup(l, lp, cnn_response, sphere_image, lmask, cfg)
+    while not bool(st.done.all()):
+        st = _iteration(st, ctx)
+    return _finalize(st, ctx)

@@ -2,12 +2,14 @@
 entropy coder) into shared libraries with g++, at first use.
 
 A library goes into a directory under ``build/`` of the checkout, under a
-name hashed from its source and flags, as ``kernels.py`` names the CUDA
-libraries: an edited source is rebuilt and a stale library is never
-loaded. A library built with ``-march=native`` is compiled for the host's
-CPU, so its name also hashes what ``-march=native`` resolves to there: a
-``build/`` carried to another machine rebuilds instead of loading code
-made for the first. A failed build raises; nothing falls back.
+name hashed from its source, its flags and the g++ that builds it, as
+``kernels.py`` names the CUDA libraries: an edited source, or another
+compiler, rebuilds, and a stale library is never loaded (two g++ versions
+can compile the same floating-point source into code that rounds
+differently). A library built with ``-march=native`` is compiled for the
+host's CPU, so its name also hashes what ``-march=native`` resolves to
+there: a ``build/`` carried to another machine rebuilds instead of loading
+code made for the first. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -37,13 +39,21 @@ def native_target() -> bytes:
                           check=True).stdout
 
 
+@functools.cache
+def compiler() -> bytes:
+    """The g++ that builds the libraries (``g++ --version``)."""
+    return subprocess.run([_gxx("a host library"), "--version"],
+                          capture_output=True, check=True).stdout
+
+
 def library_path(source: str, flags: tuple, build_dir: str,
                  stem: str) -> str:
-    """Where the library of ``source`` built with ``flags`` lies (on this
-    host, where ``flags`` hold ``-march=native``)."""
+    """Where the library of ``source`` built with ``flags`` by this g++
+    lies (on this host, where ``flags`` hold ``-march=native``)."""
     with open(source, "rb") as f:
         h = hashlib.sha256(f.read())
     h.update(" ".join(flags).encode())
+    h.update(compiler())
     if NATIVE in flags:
         h.update(native_target())
     return os.path.join(build_dir, f"{stem}-{h.hexdigest()[:12]}.so")

@@ -5,9 +5,9 @@ package's ``lsd/lsd.cpp``).
 The source is compiled with g++ and the JAX binding's flags (``-O3
 -march=native``), so both packages give identical segments on one
 machine. The library goes into ``build/lsd/`` of the checkout under a name
-hashed from the source, the flags and the host CPU (``hostbuild.py``), so a
-``build/`` carried to another machine rebuilds. The build runs at first
-use.
+hashed from the source, the flags, the g++ and the host CPU
+(``hostbuild.py``), so a ``build/`` carried to another machine rebuilds.
+The build runs at first use.
 
 The segments depend on the host, as the reference's do: ``-march=native``
 lets g++ contract multiply-adds into FMA instructions where the CPU has
