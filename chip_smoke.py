@@ -93,6 +93,18 @@ GPU) is what runs:
   stage against JAX's stage outputs (segments, K2 on JAX's lines, the CNN
   on JAX's sphere image, the EM on JAX's inputs, the horizon), with the
   first stage that departs by more than float noise;
+* the JAX package's other configurations
+  (``assets/examples/jax_reference_options.npz``,
+  ``scripts/make_jax_reference_options.py``): K1 at 2 and 16 passes
+  bit-exact against its twin at B = 4 (and the 2-pass fixpoint residual
+  equal to the twin's); the detector's row selection, prefilter caps,
+  approximate top-k, ``tol_deg``, ``blur_sigma``, ``pair_tol_factor`` and
+  ``ccl_passes`` (with ``check_fixpoint``) on four bench scenes against
+  JAX's (valid counts within 1, matched segments within 1e-3, NaN where
+  JAX's are); ``EMConfig(loop="phase")`` on JAX's EM inputs within 0.02
+  of JAX's phase loop; at b32 the row selection and the phase loop bit
+  for bit against the global selection and the uniform loop; the stage
+  split of each configuration (information only);
 * ``parallel/``: ranks spawned over gloo that share the card run sharded
   serving on the scenes tiled to b32 at (dp, tp) = (2, 1) (every output
   equal to the single-process run's), (1, 2) and (2, 2) (CNN grid within
@@ -118,7 +130,8 @@ steps, ``launches_sharded`` the sharded serving runs' (all ranks),
 ``launches_tools`` the tools phase's (probes, paths, gate and profiles),
 ``launches_hd`` the HD gate's, ``launches_em_trajectory`` the
 em-trajectory phase's (the traced frames' own paths and K2 on JAX's
-lines), K1's ``ms_by_wide_grid`` its time at
+lines), ``launches_options`` the options phase's (K1's comparison
+launches excluded), K1's ``ms_by_wide_grid`` its time at
 B = 4 and 32 on 720p and 1080p gradient grids (``plain_ms_by_wide_grid``
 the twin's at B = 4, ``bound_ms_by_wide_grid`` the bound) and
 ``us_per_row_step`` the time of one row step there and on the main
@@ -250,6 +263,15 @@ KNIFE_CONSENSUS, TOOLS_BATCH = 8, 10
 EM_CHECKPOINTS = (("it1", 1), ("it2", 2), ("it3", 3), ("end", 100))
 EM_VP_TOL, EM_BENCH_SCENE = 1e-6, 25
 SEG_GAP_TOL, GRID_TOL = 1e-3, 2e-2
+# the options phase: JAX's outputs under the detector's other arguments
+# and its phase loop (scripts/make_jax_reference_options.py, whose
+# VARIANTS table the phase runs; the script imports JAX only inside its
+# functions), K1's other pass counts, the stage split's repeats
+OPTIONS_SCRIPT = os.path.join(ROOT, "scripts",
+                              "make_jax_reference_options.py")
+OPTIONS_REFERENCE = os.path.join(ROOT, "assets", "examples",
+                                 "jax_reference_options.npz")
+OPTION_PASSES, OPTION_REPEATS, OPTION_ROUNDS = (2, 16), 3, 8
 
 
 def log(msg: str) -> None:
@@ -365,15 +387,15 @@ def packed_of(ld, imgs):
                               float(np.cos(np.radians(ld.TOL_DEG))))
 
 
-def detected_lines(pkg, imgs, n_pad: int):
+def detected_lines(pkg, imgs, cfg):
     """K2's input on the main path: the device detector's homogeneous
-    lines and their mask, (B, n_pad, 3) and (B, n_pad), contiguous
-    (``pkg`` is the port's package)."""
+    lines and their mask under ``cfg``, (B, n_pad, 3) and (B, n_pad),
+    contiguous (``pkg`` is the port's package)."""
     import torch
 
     with torch.inference_mode():
         seg, mask = pkg.ops.lines_device.detect_segments_device(
-            imgs, max_segments=n_pad)
+            imgs, **cfg.det_kwargs())
     lines = torch.where(mask[..., None],
                         pkg.ops.lines.segments_to_homogeneous(seg), 0.0)
     return lines.contiguous(), mask.contiguous()
@@ -1479,18 +1501,37 @@ def bench_phase(card: str, pipe, kernels_all, total: dict) -> dict:
     return launches
 
 
-def _segment_gap(ref_seg, got_seg) -> float:
-    """Max over ``ref_seg`` of the distance (largest coordinate, endpoint
-    order free) to the closest segment of ``got_seg``; inf if none."""
+def _closest_gaps(ref_seg, got_seg) -> list:
+    """Per segment of ``ref_seg``, the distance (largest coordinate,
+    endpoint order free) to the closest segment of ``got_seg``; inf if
+    none."""
     import numpy as np
 
     if len(got_seg) == 0:
-        return math.inf if len(ref_seg) else 0.0
-    worst = 0.0
+        return [math.inf] * len(ref_seg)
+    gaps = []
     for s in ref_seg:
         d1 = np.abs(got_seg - s).max(axis=1)
         d2 = np.abs(got_seg - s[[2, 3, 0, 1]]).max(axis=1)
-        worst = max(worst, float(np.minimum(d1, d2).min()))
+        gaps.append(float(np.minimum(d1, d2).min()))
+    return gaps
+
+
+def _segment_gap(ref_seg, got_seg) -> float:
+    """Max over ``ref_seg`` of the distance to the closest segment of
+    ``got_seg`` (:func:`_closest_gaps`)."""
+    return max(_closest_gaps(ref_seg, got_seg), default=0.0)
+
+
+def _matched_gap(a, b) -> float:
+    """The largest endpoint gap between matched segments of ``a`` and
+    ``b``, both ways: a side with more segments than the other leaves out
+    that many of its farthest (the count may differ by one)."""
+    worst = 0.0
+    for x, y in ((a, b), (b, a)):
+        gaps = sorted(_closest_gaps(x, y))
+        worst = max(worst, max(gaps[:len(gaps) - max(0, len(x) - len(y))],
+                               default=0.0))
     return worst
 
 
@@ -1654,6 +1695,196 @@ def em_trajectory_phase(card: str, pipe, kernels_all, total: dict) -> dict:
     if failed:
         raise AssertionError(f"em-trajectory phase: {failed}")
     return phase
+
+
+def identical(a, b) -> bool:
+    """Same shape and the same values, NaN equal to NaN."""
+    import torch
+
+    if a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def em_bodies(pass_fn) -> int:
+    """How many EM loop bodies (``em.em._iteration`` calls) ``pass_fn()``
+    runs."""
+    from vanishing_points_2017_tpu_torch.em import em as em_mod
+
+    orig, n = em_mod._iteration, [0]
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return orig(*args, **kwargs)
+
+    em_mod._iteration = counted
+    try:
+        pass_fn()
+    finally:
+        em_mod._iteration = orig
+    return n[0]
+
+
+def options_phase(card: str, pipe, kernels_all, total: dict, ld) -> dict:
+    """The JAX package's other detector and EM configurations on the card:
+    K1 at 2 and 16 passes bit-exact against its twin at B = 4 on four of
+    the bench's scenes, the fixpoint residual of the 2-pass labels equal
+    to the twin's; every detector variant of ``OPTIONS_SCRIPT``'s
+    ``VARIANTS`` on those scenes against JAX's (``OPTIONS_REFERENCE``:
+    valid counts within 1, matched segments within SEG_GAP_TOL, NaN on
+    the images where JAX's are NaN); the phase loop on JAX's EM inputs within HORIZON_TOL of JAX's
+    phase loop, and bit-identical to the uniform loop; at b32 on the
+    bench's 32 scenes the row selection bit-identical to the global one
+    and ``device_pipeline_full`` with ``loop="phase"`` to ``"uniform"``;
+    then per configuration ``bench.stage_split`` (EM host syncs and loop
+    bodies, idle share) and OPTION_ROUNDS stage passes in turns (EM,
+    detector and total ms): information only. -> the phase's
+    launches per kernel source, K1's comparison launches excluded."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch import bench
+    from vanishing_points_2017_tpu_torch.em.consensus import em_and_horizon
+    from vanishing_points_2017_tpu_torch.pipeline import device_pipeline_full
+
+    spec = importlib.util.spec_from_file_location("options", OPTIONS_SCRIPT)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    failed: list = []
+    check = checker(failed)
+    ref = dict(np.load(OPTIONS_REFERENCE))
+    cfg, dev = pipe.cfg, pipe.device
+    imgs32 = torch.from_numpy(bench.make_inputs(BATCH, 640, cfg.n_pad)[0]).to(
+        dev)
+    scenes = [int(i) for i in ref["bench_scenes"]]
+    imgs4 = imgs32[scenes].contiguous()
+
+    # ---- K1 at other pass counts against its twin
+    packed = packed_of(ld, imgs4)
+    for passes in OPTION_PASSES:
+        got = ld.connected_components_cuda(packed, passes)
+        twin = ld.connected_components_ref(packed, passes)
+        n_bad = int((got != twin).sum())
+        log(f"K1 B={len(scenes)} {tuple(packed.shape[1:])} passes={passes}: "
+            f"{n_bad} labels differ")
+        check(n_bad == 0, f"K1 not bit-exact at {passes} passes")
+        if passes == 2:
+            res = [int(ld.ccl_fixpoint_residual(packed[:1], lab[:1])[0])
+                   for lab in (got, twin)]
+            log(f"fixpoint residual at 2 passes, bench scene {scenes[0]}: "
+                f"K1 {res[0]}, twin {res[1]} pixels")
+            check(res[0] == res[1], "K1's fixpoint residual differs from "
+                  "the twin's")
+
+    reset(kernels_all)
+    # ---- the detector's variants against JAX's on the four scenes
+    for name, kw in script.VARIANTS.items():
+        with torch.inference_mode():
+            seg, mask = ld.detect_segments_device(
+                imgs4, max_segments=cfg.n_pad, **kw)
+        seg, mask = seg.cpu().numpy(), mask.cpu().numpy()
+        js, jm = ref[f"bench_{name}_segments"], ref[f"bench_{name}_mask"]
+        worst, poisoned = 0.0, []
+        for i in range(len(scenes)):
+            tv, jv = seg[i][mask[i]], js[i][jm[i]]
+            tnan, jnan = np.isnan(tv).any(1), np.isnan(jv).any(1)
+            check(tnan.all() == jnan.all() and tnan.any() == jnan.any()
+                  and not np.any(seg[i][~mask[i]]),
+                  f"options {name} scene {scenes[i]}: NaN where JAX's are "
+                  "not, or the other way")
+            if jnan.all():
+                poisoned.append(scenes[i])
+                continue
+            worst = max(worst, _matched_gap(jv, tv))
+        dn = np.abs(mask.sum(1) - jm.sum(1)).max()
+        log(f"options detector {name}: valid {mask.sum(1).tolist()} vs JAX "
+            f"{jm.sum(1).tolist()}, worst endpoint gap {worst:.3g}, NaN "
+            f"images {poisoned} ({card})")
+        check(dn <= 1 and worst <= SEG_GAP_TOL,
+              f"options {name}: counts {dn} apart, gap {worst}")
+
+    # ---- the phase loop on JAX's EM inputs against JAX's phase loop
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    hz = dict(maxbest=cfg.maxbest, theta_vmin=cfg.theta_vmin,
+              pos_gate_ideal_tol=cfg.horizon_pos_gate_tol)
+    ins = [t(ref["phase_l"]), t(ref["bench_global_segments"]),
+           t(ref["phase_grid"]), t(ref["phase_sphere"]).float(),
+           t(ref["bench_global_mask"])]
+    phase_em = dataclasses.replace(cfg.em, loop="phase")
+    with torch.inference_mode():
+        em_p, h_p = em_and_horizon(*ins, phase_em, **hz)
+        em_u, h_u = em_and_horizon(*ins, cfg.em, **hz)
+    errs = [horizon_err(h_p[0][i], h_p[1][i], ref["phase_hp1"][i],
+                        ref["phase_hp2"][i]) for i in range(len(scenes))]
+    same_alive = (em_p.alive.cpu().numpy() == ref["phase_alive"]).all(1)
+    log(f"phase loop on JAX's inputs: iterations {em_p.iterations.tolist()} "
+        f"vs JAX {ref['phase_iterations'].tolist()}, alive sets equal on "
+        f"{int(same_alive.sum())} of {len(scenes)}, horizon errors vs JAX's "
+        f"phase loop {[round(float(e), 5) for e in errs]} ({card})")
+    check(max(errs) <= HORIZON_TOL, f"phase loop: horizon {max(errs)} from "
+          "JAX's")
+    check(all(identical(a, b) for a, b in zip((*em_p, *h_p), (*em_u, *h_u))),
+          "phase loop differs from the uniform loop on JAX's inputs")
+
+    # ---- row against global, phase against uniform, at b32
+    row_cfg = dataclasses.replace(cfg, det_selection="row")
+    phase_cfg = dataclasses.replace(cfg, em=phase_em)
+    with torch.inference_mode():
+        g = ld.detect_segments_device(imgs32, **cfg.det_kwargs())
+        r = ld.detect_segments_device(imgs32, **row_cfg.det_kwargs())
+    out_u = device_pipeline_full(imgs32, pipe.model, pipe.mean, cfg)
+    out_p = device_pipeline_full(imgs32, pipe.model, pipe.mean, phase_cfg)
+    diff = [k for k in out_u if not identical(out_u[k], out_p[k])]
+    row_same = identical(g[0], r[0]) and identical(g[1], r[1])
+    log(f"b{BATCH}: row selection {'equals' if row_same else 'DIFFERS'} "
+        f"global ({int(g[1].sum())} segments); phase loop differs from "
+        f"uniform in {diff or 'no output'}; iterations max "
+        f"{int(out_p['iterations'].max())}")
+    check(row_same, f"b{BATCH}: row selection differs from global")
+    check(not diff, f"b{BATCH}: phase loop differs from uniform in {diff}")
+
+    # ---- per configuration (information only): one profiled stage split
+    # (syncs, idle share), then OPTION_ROUNDS rounds of synchronized
+    # stage passes in turns, forward then backward
+    host = imgs32.cpu().pin_memory()
+    configs = {"global detector, uniform EM": cfg,
+               "global detector, phase EM": phase_cfg,
+               "row detector, uniform EM": row_cfg}
+    for tag, c in configs.items():
+        sp = bench.stage_split(host, pipe.model, pipe.mean, c, OPTION_REPEATS)
+        bodies = em_bodies(lambda: bench.stage_pass(host, pipe.model,
+                                                    pipe.mean, c))
+        log(f"options stage split b{BATCH}/640^2, {tag} ({card}): "
+            f"{sp['em_host_syncs']} EM host syncs, {bodies} loop bodies, "
+            f"{sp['em_iterations_max']} iterations max; EM "
+            f"{sp['stage_ms']['em']:.2f} ms, detector "
+            f"{sp['stage_ms']['detector']:.2f} ms, total "
+            f"{sp['stage_total_ms']:.2f} ms; idle share "
+            f"{sp['device_idle_share']}")
+    ms = {tag: {"EM": [], "detector": [], "total": []} for tag in configs}
+    for rnd in range(OPTION_ROUNDS):
+        for tag in (list(configs) if rnd % 2 == 0 else list(configs)[::-1]):
+            secs = bench.stage_pass(host, pipe.model, pipe.mean,
+                                    configs[tag])[0]
+            for k, v in (("EM", secs["em"]), ("detector", secs["detector"]),
+                         ("total", sum(secs.values()))):
+                ms[tag][k].append(v * 1e3)
+    for tag, row in ms.items():
+        log(f"options in turns b{BATCH}/640^2, {tag}, {OPTION_ROUNDS} "
+            f"passes ({card}): " + "; ".join(
+                f"{k} ms median {statistics.median(v):.2f} (runs "
+                f"{', '.join(f'{x:.2f}' for x in v)})"
+                for k, v in row.items()))
+    torch.cuda.synchronize()
+    launches = {k.source: k.launches for k in kernels_all}
+    count(kernels_all, total, "options", need=kernels_all)
+    if failed:
+        raise AssertionError(f"options phase: {failed}")
+    return launches
 
 
 def _rank_setup(init_method: str):
@@ -1913,6 +2144,7 @@ def parallel_phase(dev, card: str, kernels_all, total: dict, params, mean,
 
 
 def main() -> int:
+    start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2003,7 +2235,7 @@ def main() -> int:
                                  bound_ms=k1_bound, bound_by=k1_by)
 
     # ---- K2: sphere render of the detected lines vs its twin
-    lines, mask = detected_lines(port, imgs32, cfg.n_pad)
+    lines, mask = detected_lines(port, imgs32, cfg)
     log(f"K2 input: {tuple(lines.shape)} lines, "
         f"{mask.sum(1).tolist()[:4]} valid in the first scenes")
     worst = 0.0
@@ -2271,6 +2503,11 @@ def main() -> int:
     per_em = em_trajectory_phase(card, pipe, kernels_all, total)
     log(f"em-trajectory phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- the detector's other arguments and the EM's phase loop
+    t0 = time.perf_counter()
+    per_opt = options_phase(card, pipe, kernels_all, total, ld)
+    log(f"options phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- the training path: parity with JAX, dense and compact training
     # at b32, and the two drivers
     t0 = time.perf_counter()
@@ -2318,6 +2555,7 @@ def main() -> int:
              launches_tools=per_tools[ccl_k.source],
              launches_hd=per_hd[ccl_k.source],
              launches_em_trajectory=per_em[ccl_k.source],
+             launches_options=per_opt[ccl_k.source],
              ms_by_wide_grid={g: t[0] for g, t in wide_ms.items()},
              plain_ms_by_wide_grid=wide_plain,
              bound_ms_by_wide_grid={g: t[1] for g, t in wide_ms.items()},
@@ -2335,10 +2573,12 @@ def main() -> int:
              launches_tools=per_tools[sph_k.source],
              launches_hd=per_hd[sph_k.source],
              launches_em_trajectory=per_em[sph_k.source],
+             launches_options=per_opt[sph_k.source],
              library_ms=None, **records["sphere_render"]),
     ]
     for k in kernel_info:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     log(json.dumps({"kernels": kernel_info}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

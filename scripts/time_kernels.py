@@ -130,7 +130,7 @@ def main() -> None:
         for i in range(BATCH)]
     imgs = torch.from_numpy(np.stack(grays)).to(dev)
     packed = packed_of(this.ops.lines_device, imgs)
-    lines, mask = detected_lines(this, imgs, 512)
+    lines, mask = detected_lines(this, imgs, this.pipeline.PipelineConfig())
     builds = {k: pkg.ops.lines_device.CCL_KERNEL for k, pkg in pkgs.items()}
     if args.wide:
         builds.update({f"CCL_WARPS={n}": forced_k1(this, n)

@@ -33,7 +33,8 @@ RECORD_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_note",
                "degraded", "breakdown"}
 BREAKDOWN_KEYS = {
     "includes_detection", "timing_semantics", "platform", "device",
-    "power_limit", "torch", "cuda", "image_size", "batch", "iters",
+    "power_limit", "torch", "cuda", "image_size", "batch", "det_selection",
+    "iters",
     "repeats", "weights_fingerprint", "serial_images_per_sec",
     "compute_images_per_sec", "fused_device_images_per_sec", "spread",
     "host_lsd_ms_per_image", "kernel_build_s", "first_call_s",
@@ -119,6 +120,7 @@ def test_bench_main_on_cpu(monkeypatch):
     bd = rec["breakdown"]
     assert set(bd) == BREAKDOWN_KEYS
     assert bd["platform"] == "cpu" and rec["degraded"] is True
+    assert bd["det_selection"] == "global"
     assert bd["mfu_estimate"] is None and bd["device_idle_share"] is None
     assert bd["device_idle_note"]
     assert bd["flops_per_image"] == SHIPPED_FLOPS

@@ -62,6 +62,22 @@ def test_ccl_kernel_bit_exact(cuda, size, passes):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("passes", [2, 16])
+def test_ccl_kernel_other_pass_counts(cuda, passes):
+    """The detector's ``ccl_passes`` other than 8: bit-exact against the
+    twin, and the fixpoint residual of the kernel's labels equal to the
+    twin's (two passes leave labels to spread on these lines)."""
+    _, active, ux, uy = ld.gradient_front(_images(4, 200, seed=1).to(cuda))
+    packed = ld.pack_edge_masks(active, ux, uy,
+                                math.cos(math.radians(ld.TOL_DEG)))
+    got = ld.connected_components(packed, passes)
+    ref = ld.connected_components_ref(packed, passes)
+    assert torch.equal(got, ref)
+    res = ld.ccl_fixpoint_residual(packed, got)
+    assert torch.equal(res, ld.ccl_fixpoint_residual(packed, ref))
+    assert (int(res.sum()) > 0) == (passes == 2)
+
+
 def _plane(kind, b, h, w, seed=0):
     """A packed edge bit-plane: random bits (any plane must give the
     twin's labels, border bits included), mostly-set bits, all set, none."""

@@ -40,7 +40,8 @@ def _match(ref_seg, got_seg):
 def test_detector_matches_jax():
     imgs = _images(160, (0, 1))
     seg, mask = tld.detect_segments_device(torch.from_numpy(imgs),
-                                           max_segments=256)
+                                           max_segments=256,
+                                           selection="global")
     for i in range(imgs.shape[0]):
         js, jm = jld.detect_segments_device(
             jnp.asarray(imgs[i]), max_segments=256, selection="global",

@@ -70,10 +70,8 @@ def test_port_segments_are_jax_segments_within_float_noise(ref):
     records, _ = synthetic_records(count=13)
     gray = Pipeline.ingest_image(records[12].image)["gray"]
     cfg = PipelineConfig()
-    lp, lm = detect_segments_device(
-        torch.from_numpy(gray[None]), max_segments=cfg.n_pad,
-        min_count=cfg.det_min_count, min_len_px=cfg.det_min_len_px,
-        min_density=cfg.det_min_density, max_records=cfg.det_max_records)
+    lp, lm = detect_segments_device(torch.from_numpy(gray[None]),
+                                    **cfg.det_kwargs())
     lp, lm = lp[0].numpy(), lm[0].numpy()
     np.testing.assert_array_equal(lm, ref["segment_mask"])
     assert int(lm.sum()) == 242

@@ -1,7 +1,7 @@
 """Every ``python -m vanishing_points_2017_tpu_torch.tools.<name>`` command
 on the CPU at a small size (``--device cpu``, 2-4 scenes, 1-2 jitters):
-exit code 0 and the JAX script's lines; the flags that drive paths the
-port does not have are refused; without ``--device cpu`` every command
+exit code 0 and the JAX script's lines; the detector flags take the JAX
+scripts' values and refuse others; without ``--device cpu`` every command
 raises when there is no GPU."""
 
 import contextlib
@@ -143,9 +143,12 @@ def test_eval_weights_artifacts_table(tmp_path):
 
 
 def test_sweep_detector_gates_rows():
-    rc, out = _run(sweep_detector_gates, ["--device", "cpu", "--count", "2"])
+    rc, out = _run(sweep_detector_gates, ["--device", "cpu", "--count", "2",
+                                          "--size", "160"])
     lines = out.splitlines()
-    assert rc == 0 and len(lines) == 3, out
+    assert rc == 0 and len(lines) == 1 + len(sweep_detector_gates.VARIANTS)
+    assert [v[0] for v in sweep_detector_gates.VARIANTS] == [
+        "row"] * 4 + ["global"] * 2 + ["global!"]
     for line, (sel, budget, *_) in zip(lines[1:],
                                        sweep_detector_gates.VARIANTS):
         assert line.split()[:2] == [sel, str(budget)], out
@@ -161,7 +164,12 @@ def test_profile_detector_rows():
     assert names == [
         "front (blur+grad)", "pack (edge bit-plane)", "ccl passes=8",
         "ccl passes=4", "ccl passes=2", "stats budget=4096",
-        "whole detector budget=4096", "whole detector budget=2048",
+        "stats runs_per_row=64", "stats runs_per_row=32",
+        "whole detector budget=4096", "whole detector budget=4096 "
+        "topk=approx", "whole detector budget=2048",
+        "whole detector budget=2048 topk=approx",
+        "whole detector selection=row", "whole detector ccl_passes=4",
+        "whole detector ccl_passes=2",
         "sum of sub-stages (front, pack, ccl passes=8, stats)"], out
     assert out.splitlines()[0].startswith("device: cpu (no card")
 
@@ -183,14 +191,59 @@ def test_profile_e2e_record():
 
 @pytest.mark.parametrize("module", ["eval_device_detector",
                                     "revalidate_detector"])
-@pytest.mark.parametrize("flag", [["--det_selection", "row"],
-                                  ["--det_topk", "approx"]])
+@pytest.mark.parametrize("flag", [["--det_selection", "rows"],
+                                  ["--det_topk", "fast"]])
 def test_not_ported_flags_are_refused(module, flag, capsys):
+    """The detector flags take what the JAX scripts pass (global / row,
+    exact / approx) and refuse any other value before any work."""
     with pytest.raises(SystemExit) as exc:
         MODULES[module].main(["--device", "cpu", *flag])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert f"{flag[0]} is not accepted" in err and "do-not-port" in err
+    assert f"{flag[0]}: invalid choice" in err
+
+
+def test_detector_flags_reach_the_config(monkeypatch):
+    """``--det_selection row --det_topk approx`` run the eval's full path
+    and the gate under that configuration (the gate prints its det_key)."""
+    from vanishing_points_2017_tpu_torch.tools import make_pipeline
+
+    cfgs = []
+
+    def spy(dev, cfg=None):
+        cfgs.append(cfg)
+        return make_pipeline(dev, cfg)
+
+    flags = ["--det_selection", "row", "--det_topk", "approx"]
+    monkeypatch.setattr(eval_device_detector, "make_pipeline", spy)
+    monkeypatch.setattr(revalidate_detector, "make_pipeline", spy)
+    rc, out = _run(eval_device_detector, [
+        "--device", "cpu", "--count", "2", "--batch", "2", "--size", "160",
+        "--paths", "full", *flags])
+    assert rc == 0 and out.startswith("device-full path: AUC"), out
+    monkeypatch.setattr(revalidate_detector, "stage_synthetic_gap",
+                        lambda *a: (True, 1.0, 1.0, 0.0))
+    rc, out = _run(revalidate_detector, ["--device", "cpu", "--skip_pins",
+                                         *flags])
+    assert rc == 0
+    assert "det_key: detrow15-12-0.7-32768-approx-torch" in out, out
+    assert [(c.det_selection, c.det_topk) for c in cfgs] == [
+        ("row", "approx")] * 2
+
+
+def test_bench_det_selection_flag_and_env(monkeypatch):
+    """The bench's ``--det_selection`` defaults from
+    ``BENCH_DET_SELECTION``, as the JAX bench reads it."""
+    from vanishing_points_2017_tpu_torch import bench
+
+    seen = []
+    monkeypatch.setattr(bench, "measure",
+                        lambda *a: (seen.append(a[-1]), ({}, {}))[1])
+    monkeypatch.setenv("BENCH_DET_SELECTION", "row")
+    for argv in ([], ["--det_selection", "global"]):
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert bench.main(["--device", "cpu", *argv]) == 0
+    assert seen == ["row", "global"]
 
 
 @pytest.mark.parametrize("name", sorted(MODULES))

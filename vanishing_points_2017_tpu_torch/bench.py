@@ -3,14 +3,17 @@
 
     python -m vanishing_points_2017_tpu_torch.bench [--batch 32] [--iters 8]
         [--size 640] [--repeats 5] [--peak_flops F] [--device cuda]
+        [--det_selection global|row]
 
 Times the zero-host-round-trip path (``pipeline.device_pipeline_full``:
 uint8 grayscale images in, on-device line detection, sphere render, CNN,
 EM, horizon out) on the JAX bench's own inputs (rendered synthetic scenes
 drawn from ``default_rng(0)``), with the shipped weights and the default
-``PipelineConfig``. Every rate is images per second: the median over
-``--repeats`` repeats of ``--iters`` batches each, with the minimum, the
-maximum and every repeat's rate beside it. One warm-up call comes first
+``PipelineConfig`` (``--det_selection row`` benches the detector's per-row
+budget instead; the record keeps the selection as ``det_selection``).
+Every rate is images per second: the median over ``--repeats`` repeats of
+``--iters`` batches each, with the minimum, the maximum and every repeat's
+rate beside it. One warm-up call comes first
 (``first_call_s``); each repeat then runs the loops in turns:
 
 * pipelined (the headline ``value``): every batch's host-to-device copy
@@ -37,8 +40,9 @@ record.
 ``--device`` defaults to ``cuda`` and raises without a GPU. ``--device
 cpu`` runs the kernels' plain twins on the CPU and marks the record
 ``degraded``, with no MFU and no idle share (a CPU time is no device
-time). ``BENCH_BATCH``, ``BENCH_ITERS``, ``BENCH_IMAGE_SIZE`` and
-``BENCH_PEAK_FLOPS`` set the defaults of the flags of the same names.
+time). ``BENCH_BATCH``, ``BENCH_ITERS``, ``BENCH_IMAGE_SIZE``,
+``BENCH_PEAK_FLOPS`` and ``BENCH_DET_SELECTION`` set the defaults of the
+flags of the same names.
 """
 
 from __future__ import annotations
@@ -154,10 +158,7 @@ def stage_pass(host: torch.Tensor, model, mean: torch.Tensor, cfg):
         t0 = time.perf_counter()
         imgs = host.to(dev, non_blocking=True)
         t0 = mark("h2d", t0)
-        lp, lmask = detect_segments_device(
-            imgs, max_segments=cfg.n_pad, min_count=cfg.det_min_count,
-            min_len_px=cfg.det_min_len_px, min_density=cfg.det_min_density,
-            max_records=cfg.det_max_records)
+        lp, lmask = detect_segments_device(imgs, **cfg.det_kwargs())
         t0 = mark("detector", t0)
         l = torch.where(lmask[..., None],
                         lineops.segments_to_homogeneous(lp), 0.0)
@@ -264,7 +265,7 @@ def _spread(rates: list) -> dict:
 
 def measure(batch: int = 32, iters: int = 8, size: int = 640,
             repeats: int = 5, device: str = "cuda",
-            peak_flops: float | None = None):
+            peak_flops: float | None = None, det_selection: str = "global"):
     """Run the bench -> (record, horizons): the JSON record, and each
     loop's (hp1, hp2) of its last batch as numpy arrays, by loop name
     (:data:`LOOPS`). Raises without a GPU unless ``device`` is the CPU."""
@@ -278,7 +279,7 @@ def measure(batch: int = 32, iters: int = 8, size: int = 640,
     gpu = dev.type == "cuda"
     name, power_limit = _card(dev)
     build_s = _build_kernels() if gpu else None
-    cfg = PipelineConfig()
+    cfg = PipelineConfig(det_selection=det_selection)
     weights_fp = wload.weights_identity()
     params, mean = wload.load_params_and_mean(device=dev)
     pipe = Pipeline(params, mean, cfg, device=dev)
@@ -379,6 +380,7 @@ def measure(batch: int = 32, iters: int = 8, size: int = 640,
             "cuda": torch.version.cuda,
             "image_size": size,
             "batch": batch,
+            "det_selection": cfg.det_selection,
             "iters": iters,
             "repeats": repeats,
             "weights_fingerprint": weights_fp,
@@ -419,11 +421,14 @@ def main(argv: list[str] | None = None) -> int:
                          "H100 SXM's dense peak in the CNN's dtype)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for the tests)")
+    ap.add_argument("--det_selection", choices=("global", "row"),
+                    default=env("BENCH_DET_SELECTION") or "global",
+                    help="PipelineConfig.det_selection (default global)")
     args = ap.parse_args(argv)
     if min(args.batch, args.iters, args.size, args.repeats) < 1:
         ap.error("--batch, --iters, --size and --repeats must be >= 1")
     record, _ = measure(args.batch, args.iters, args.size, args.repeats,
-                        args.device, args.peak_flops)
+                        args.device, args.peak_flops, args.det_selection)
     print(json.dumps(record), flush=True)
     return 0
 

@@ -8,10 +8,18 @@ The JAX ``lax.while_loop`` bodies become Python loops over batched state:
 every loop runs while ANY image still needs it, and an image whose own
 condition is false keeps its state unchanged — what a vmapped
 ``while_loop`` does. The loop conditions are read on the host, one
-device-to-host sync per iteration. Only the ``loop="uniform"`` body of the
-JAX package is ported (split/merge gated by ``i % split_merge_freq``);
-a split or merge step with no image due is skipped outright, which leaves
-every state unchanged, as the gated JAX body does.
+device-to-host sync per iteration.
+
+``EMConfig.loop`` picks the JAX package's loop structure. ``"uniform"``
+(the default) runs one body per trip, with split and merge gated by
+``i % split_merge_freq``; a split or merge step with no image due is
+skipped outright, which leaves every state unchanged, as the gated JAX
+body does. ``"phase"`` runs one full body and then
+``split_merge_freq - 1`` bodies with split and merge statically off per
+trip: the images advance in lockstep (each either moves one iteration or
+is done), so none is due in those bodies, and they read nothing back;
+``done`` is read once per trip. Its outputs are bit-identical to the
+uniform loop's; bodies run on images already done leave them unchanged.
 
 Reference quirks kept (see the JAX module): split's in-image check on the
 raw slot index, merge writing s[k] before validating, NaN stddevs sorting
@@ -56,12 +64,18 @@ class EMConfig:
     num_min_lines: int = 3
     m_slots: int = 40
     wrap_quirk: bool = True
+    # "uniform": one gated body per trip; "phase": a full body then
+    # split_merge_freq - 1 plain ones per trip (see the module docstring)
+    loop: str = "uniform"
 
     def __post_init__(self):
         if self.distance_measure not in ("angle", "dotprod"):
             raise ValueError(
                 f"distance measure {self.distance_measure!r} not supported by "
                 "the EM (reference asserts at vp_localisation.py:203)")
+        if self.loop not in ("uniform", "phase"):
+            raise ValueError(f"loop {self.loop!r}: expected 'uniform' or "
+                             "'phase'")
 
     @property
     def max_stdd(self) -> float:
@@ -388,10 +402,13 @@ def _setup(l, lp, cnn_response, sphere_image, lmask, cfg: EMConfig):
                   torch.zeros_like(v0), log_s, alive, flag, flag), ctx
 
 
-def _iteration(st: _State, ctx: _Ctx) -> _State:
+def _iteration(st: _State, ctx: _Ctx, with_split_merge: bool = True
+               ) -> _State:
     """One pass of the loop body for every image not yet done: the split
     move when due, the E-step, the M-step (weighted TLS refit and
-    variance update), the periodic merge when due, the buffer swap."""
+    variance update), the periodic merge when due, the buffer swap.
+    ``with_split_merge=False`` leaves split and merge out (the phase
+    loop's plain bodies), so the body reads nothing back to the host."""
     cfg, l = ctx.cfg, ctx.l
     i, v_cur, v_next, log_s, alive, done, empty = st
     b = l.shape[0]
@@ -402,7 +419,7 @@ def _iteration(st: _State, ctx: _Ctx) -> _State:
     vc, ls, al = v_cur, log_s, alive
 
     # ---- split move (every split_merge_freq iterations, 0 < i < 100)
-    if cfg.do_split:
+    if cfg.do_split and with_split_merge:
         split_due = go & phase & (i < SPLIT_MERGE_IT)
         if bool(split_due.any()):
             _, w_s = ctx.estep(vc, al, ls)
@@ -433,7 +450,7 @@ def _iteration(st: _State, ctx: _Ctx) -> _State:
                  | (not cfg.do_iterations))
 
     # ---- periodic merge (only when not converged this iteration)
-    if cfg.do_merge:
+    if cfg.do_merge and with_split_merge:
         merge_due = (go & ~converged & phase
                      & (i <= SPLIT_MERGE_IT + freq))
         if bool(merge_due.any()):
@@ -461,6 +478,9 @@ def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
     segments, cnn_response (B, 20, 20) sigmoid grids, sphere_image
     (B, S, S) in Agg orientation, lmask (B, N) validity."""
     st, ctx = _setup(l, lp, cnn_response, sphere_image, lmask, cfg)
+    plain = max(cfg.split_merge_freq - 1, 0) if cfg.loop == "phase" else 0
     while not bool(st.done.all()):
         st = _iteration(st, ctx)
+        for _ in range(plain):
+            st = _iteration(st, ctx, with_split_merge=False)
     return _finalize(st, ctx)

@@ -6,20 +6,22 @@ A data-parallel reformulation of LSD with static shapes:
 1. Gaussian blur, 2x2 gradient and DIRECTED level-line angles, LSD's
    ``rho = quant / sin(tol)`` activation threshold.
 2. Connected components: two 8-neighbours join when both are active and
-   their level-line directions agree within ``tol``. The 8 directed edge
-   masks are packed once into an int32 bit-plane (:func:`pack_edge_masks`),
-   then alternating raster min-label passes spread labels — the CUDA kernel
-   ``csrc/ccl_raster.cu`` on a GPU, the plain twin
-   :func:`connected_components_ref` on the CPU.
-3. Per-row run records (segmented row scans), an image-wide top-k of runs
-   by mass, one canonical (root, position) sort, per-component moment sums,
-   principal direction and extremal projections.
+   their level-line directions agree within ``pair_tol_factor * tol``. The
+   8 directed edge masks are packed once into an int32 bit-plane
+   (:func:`pack_edge_masks`), then alternating raster min-label passes
+   spread labels — the CUDA kernel ``csrc/ccl_raster.cu`` on a GPU, the
+   plain twin :func:`connected_components_ref` on the CPU.
+3. Per-row run records (segmented row scans), a selection of runs by mass
+   (per row, or image-wide), one canonical (root, position) sort,
+   per-component moment sums, principal direction and extremal
+   projections.
 4. LSD-style NFA, count, length and density gates, then a stable re-rank.
 
-This port covers the production path of the JAX function:
-``selection="global"``, ``topk_impl="exact"``, ``coord_affine`` on. Every
-selection goes through a stable sort (``ops/select.py``), so ties resolve in
-index order as ``lax.top_k`` resolves them.
+The JAX function's arguments and defaults, with ``coord_affine`` always
+on; its ``ccl_impl`` has no counterpart (one CCL: the kernel and its
+bit-identical twin). Every selection goes through a stable sort
+(``ops/select.py``), so ties resolve in index order as ``lax.top_k``
+resolves them.
 """
 
 from __future__ import annotations
@@ -223,16 +225,20 @@ def ccl_fixpoint_residual(packed: torch.Tensor,
     return torch.sum(best != lab, dim=(1, 2))
 
 
-def gradient_front(images: torch.Tensor):
+def gradient_front(images: torch.Tensor, tol_deg: float = TOL_DEG,
+                   blur_sigma: float = BLUR_SIGMA):
     """(B, H, W) grayscale in [0, 255] -> (mag, active, ux, uy) on the
-    (H-1, W-1) inner 2x2-gradient grid (LSD's operators)."""
-    img = _gaussian_blur(images.to(torch.float32), BLUR_SIGMA)
+    (H-1, W-1) inner 2x2-gradient grid (LSD's operators). ``blur_sigma``
+    0 skips the blur."""
+    img = images.to(torch.float32)
+    if blur_sigma > 0:
+        img = _gaussian_blur(img, blur_sigma)
     com1 = img[..., 1:, 1:] - img[..., :-1, :-1]
     com2 = img[..., :-1, 1:] - img[..., 1:, :-1]
     gx = 0.5 * (com1 + com2)
     gy = 0.5 * (com1 - com2)
     mag = torch.sqrt(gx * gx + gy * gy)
-    active = mag > QUANT / math.sin(math.radians(TOL_DEG))
+    active = mag > QUANT / math.sin(math.radians(tol_deg))
     inv = torch.where(mag > 0, 1.0 / torch.clamp(mag, min=1e-12), 0.0)
     return mag, active, gx * inv, -gy * inv
 
@@ -241,13 +247,59 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -1, idx)
 
 
+def _select_runs(mass_row: torch.Tensor, max_segments: int,
+                 runs_per_row: int | None, selection: str, max_records: int,
+                 global_prefilter: int | None, topk_impl: str):
+    """The run records to keep, by run mass: (B, h, w) masses (-1 off the
+    run ends) -> (masses (B, R), flat run-end positions (B, R) int64).
+
+    ``selection="row"``: each row's top ``runs_per_row`` (default
+    ``max(64, w // 10, max_segments // 8)``, clamped to w), row-major.
+    ``selection="global"``: the image-wide top ``max_records``. With
+    ``topk_impl="exact"`` it is two-stage, a per-row top-``k_pre``
+    prefilter first (``global_prefilter``: None = ``max(64, 3w/10)``, 0 =
+    none, the one-stage top-k over all h*w run ends, > 0 = that cap).
+    ``topk_impl="approx"`` is ``lax.approx_max_k`` in the JAX package,
+    which off the TPU lowers to the exact sort (its comment in
+    ``_component_stats``): so here it is the one-stage exact top-k, the
+    same records as ``global_prefilter=0``. It is ignored by the row
+    selection, as in JAX."""
+    if selection not in ("row", "global"):
+        raise ValueError(f"unknown selection {selection!r}; "
+                         "expected 'row' or 'global'")
+    if topk_impl not in ("exact", "approx"):
+        raise ValueError(f"unknown topk_impl {topk_impl!r}; "
+                         "expected 'exact' or 'approx'")
+    b, h, w = mass_row.shape
+    row_i = torch.arange(h, device=mass_row.device)[:, None]
+    if selection == "row":
+        if runs_per_row is None:
+            runs_per_row = max(64, w // 10, max_segments // 8)
+        top_mass, top_col = topk_stable(mass_row, min(runs_per_row, w))
+        return top_mass.reshape(b, -1), (row_i * w + top_col).reshape(b, -1)
+    if topk_impl == "approx" or global_prefilter == 0:
+        flat = mass_row.reshape(b, -1)
+        return topk_stable(flat, min(max_records, flat.shape[1]))
+    k_pre = (min(w, max(64, (3 * w) // 10)) if global_prefilter is None
+             else min(w, int(global_prefilter)))
+    pre_mass, pre_col = topk_stable(mass_row, k_pre)
+    cand_pos = (row_i * w + pre_col).reshape(b, -1)
+    top_mass, top_i = topk_stable(pre_mass.reshape(b, -1),
+                                  min(max_records, cand_pos.shape[1]))
+    return top_mass, _gather(cand_pos, top_i)
+
+
 def _component_stats(root: torch.Tensor, wgt: torch.Tensor, max_segments: int,
-                     shape: tuple[int, int], max_records: int,
-                     coord_affine: tuple[float, float, float]) -> dict:
+                     shape: tuple[int, int],
+                     coord_affine: tuple[float, float, float],
+                     runs_per_row: int | None = None, selection: str = "row",
+                     max_records: int = 32768,
+                     global_prefilter: int | None = None,
+                     topk_impl: str = "exact") -> dict:
     """Top-k components by gradient mass with exact moments and extremal
     projections, from per-row run records (the JAX ``_component_stats`` on
-    its global/exact/affine path). root, wgt: (B, h*w). Returns per-slot
-    (B, max_segments) tensors."""
+    its affine path; the selection arguments as :func:`_select_runs`).
+    root, wgt: (B, h*w). Returns per-slot (B, max_segments) tensors."""
     h, w = shape
     b = root.shape[0]
     dev = root.device
@@ -267,17 +319,11 @@ def _component_stats(root: torch.Tensor, wgt: torch.Tensor, max_segments: int,
     q = torch.stack([w2, w2 * xn2, w2 * xn2 * xn2, (w2 > 0).to(f32)], dim=1)
     qs = _segmented_sum_scan(q, conn[:, None], log_w)      # (B, 4, h, w)
 
-    # ---- global top-R run selection: per-row top-k_pre prefilter, then
-    # the flat top-max_records over the h * k_pre candidates
-    k_pre = min(w, max(64, (3 * w) // 10))
-    mass_row = torch.where(is_end, qs[:, 0], -1.0)          # (B, h, w)
-    pre_mass, pre_col = topk_stable(mass_row, k_pre)
-    row_i = torch.arange(h, device=dev)[:, None]
-    cand_pos = (row_i * w + pre_col).reshape(b, -1)
-    r_sel = min(max_records, cand_pos.shape[1])
-    top_mass, top_i = topk_stable(pre_mass.reshape(b, -1), r_sel)
+    # ---- run-record selection
+    top_mass, flat_pos = _select_runs(
+        torch.where(is_end, qs[:, 0], -1.0), max_segments, runs_per_row,
+        selection, max_records, global_prefilter, topk_impl)
     rec_ok = top_mass > 0.0
-    flat_pos = _gather(cand_pos, top_i)                     # (B, R) int64
 
     # ---- record fetch; coordinates recomputed from the position with the
     # detector's own affine op sequence
@@ -366,25 +412,53 @@ def _component_stats(root: torch.Tensor, wgt: torch.Tensor, max_segments: int,
 
 
 def detect_segments_device(images: torch.Tensor, max_segments: int = 512,
-                           min_count: int = 15, min_len_px: float = 12.0,
+                           tol_deg: float = TOL_DEG, min_count: int = 15,
+                           min_len_px: float = 12.0,
                            min_density: float = 0.7,
-                           max_records: int = 32768):
+                           ccl_passes: int = CCL_PASSES,
+                           blur_sigma: float = BLUR_SIGMA,
+                           pair_tol_factor: float = 1.0,
+                           runs_per_row: int | None = None,
+                           check_fixpoint: bool = False,
+                           selection: str = "row",
+                           max_records: int = 32768,
+                           global_prefilter: int | None = None,
+                           topk_impl: str = "exact"):
     """(B, H, W) grayscale in [0, 255] -> (segments (B, S, 4) normalized,
-    mask (B, S)), valid segments first, by decreasing gradient mass."""
+    mask (B, S)), valid segments first, by decreasing gradient mass.
+
+    The JAX function's arguments and defaults. ``tol_deg`` sets the
+    activation threshold, the edge tolerance (times ``pair_tol_factor``)
+    and the NFA's alignment probability; ``ccl_passes`` the raster passes;
+    ``blur_sigma`` 0 skips the blur; ``min_density`` 0 turns the density
+    gate off. ``check_fixpoint=True`` adds NaN to every valid segment of an
+    image whose labels are not the CCL fixpoint after ``ccl_passes``
+    passes (:func:`ccl_fixpoint_residual`). ``selection`` (``"row"``, the
+    JAX function's low-level default, or ``"global"``, the pipeline's),
+    ``runs_per_row``, ``max_records``, ``global_prefilter`` and
+    ``topk_impl``: the run-record selection of :func:`_select_runs`."""
     if images.dim() != 3:
         raise ValueError(f"detect_segments_device: expected (B, H, W), got "
                          f"{tuple(images.shape)}")
     b, h, w = images.shape
     hi, wi = h - 1, w - 1
     npix = hi * wi
-    mag, active, ux, uy = gradient_front(images)
-    packed = pack_edge_masks(active, ux, uy, math.cos(math.radians(TOL_DEG)))
-    root = connected_components(packed, CCL_PASSES)
+    mag, active, ux, uy = gradient_front(images, tol_deg, blur_sigma)
+    packed = pack_edge_masks(active, ux, uy, math.cos(
+        pair_tol_factor * math.radians(tol_deg)))
+    root = connected_components(packed, ccl_passes)
+    poison = 0.0
+    if check_fixpoint:
+        resid = ccl_fixpoint_residual(packed, root)
+        poison = torch.where(resid > 0, math.nan, 0.0)[:, None, None]
 
     s = max(h, w) / 2.0
     wgt = torch.where(active, mag / 255.0, 0.0)
     st = _component_stats(root, wgt.reshape(b, -1), max_segments, (hi, wi),
-                          max_records, (float(w), float(h), s))
+                          (float(w), float(h), s), runs_per_row=runs_per_row,
+                          selection=selection, max_records=max_records,
+                          global_prefilter=global_prefilter,
+                          topk_impl=topk_impl)
     s_cnt, cx, cy = st["cnt"], st["cx"], st["cy"]
     ddx, ddy = st["ddx"], st["ddy"]
     tmin, tmax = st["tmin"], st["tmax"]
@@ -394,13 +468,15 @@ def detect_segments_device(images: torch.Tensor, max_segments: int = 512,
     width_px = torch.sqrt(12.0 * st["lam_min"]) * s
 
     # ---- NFA-style validation (Hoeffding bound on LSD's binomial test)
-    p_align = TOL_DEG / 180.0
+    p_align = tol_deg / 180.0
     area = span_px * torch.clamp(width_px, min=1.0)
     dens = torch.clamp(s_cnt / torch.clamp(area, min=1.0), 1e-6, 1.0 - 1e-6)
     kl = (dens * torch.log(dens / p_align)
           + (1.0 - dens) * torch.log((1.0 - dens) / (1.0 - p_align)))
     log10_nfa = 2.5 * math.log10(npix) - area * kl / math.log(10.0)
-    meaningful = (dens > p_align) & (log10_nfa < 0.0) & (dens >= min_density)
+    meaningful = (dens > p_align) & (log10_nfa < 0.0)
+    if min_density > 0.0:
+        meaningful = meaningful & (dens >= min_density)
     valid = (st["valid"] & torch.isfinite(span) & meaningful
              & (s_cnt >= min_count) & (span_px >= min_len_px))
 
@@ -408,7 +484,7 @@ def detect_segments_device(images: torch.Tensor, max_segments: int = 512,
     seg = torch.stack([cx + (tmin - t_c) * ddx, cy + (tmin - t_c) * ddy,
                        cx + (tmax - t_c) * ddx, cy + (tmax - t_c) * ddy],
                       dim=-1)
-    seg = torch.where(valid[..., None], seg, 0.0)
+    seg = torch.where(valid[..., None], seg + poison, 0.0)
     order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
     return (torch.gather(seg, 1, order[..., None].expand_as(seg)),
             torch.gather(valid, 1, order))

@@ -45,10 +45,19 @@ def select_bucket(n: int, buckets: tuple = BUCKETS) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The JAX package's defaults. The detector runs its global, exact
-    top-k selection; the renderer is the kernel (CUDA) or its twin (CPU).
-    ``n_pad`` is the device detector's segment budget; the host path picks
-    its line bucket per image from ``buckets``."""
+    """The JAX package's defaults, but for ``det_topk``. The renderer is
+    the kernel (CUDA) or its twin (CPU). ``n_pad`` is the device
+    detector's segment budget; the host path picks its line bucket per
+    image from ``buckets``.
+
+    ``det_selection``: ``"global"`` (the image-wide top
+    ``det_max_records`` runs by mass) or ``"row"`` (a per-row budget,
+    whose record set does not depend on image-wide statistics).
+    ``det_topk``: ``"exact"`` (the two-stage exact top-k) or ``"approx"``.
+    The JAX package defaults to ``"approx"``, its TPU PartialReduce,
+    which off the TPU is the one-stage exact sort; here that would sort
+    every run end of every image on the main path, so the default stays
+    ``"exact"``. Both keep the same records on every available input."""
 
     sphere_size: int = 500
     n_pad: int = 512
@@ -63,7 +72,9 @@ class PipelineConfig:
     det_min_count: int = 15
     det_min_len_px: float = 12.0
     det_min_density: float = 0.7
+    det_selection: str = "global"
     det_max_records: int = 32768
+    det_topk: str = "exact"
     # Bootstrap-consensus horizon (em/consensus.py): 0/1 = off, the
     # reference-parity single EM; K > 1 = K perturbed segment populations
     # through the EM and the horizon search, the medoid member reported.
@@ -79,6 +90,12 @@ class PipelineConfig:
         if self.consensus_mode not in ("dropout", "bootstrap"):
             raise ValueError(f"consensus_mode {self.consensus_mode!r}: "
                              "expected 'dropout' or 'bootstrap'")
+        if self.det_selection not in ("global", "row"):
+            raise ValueError(f"det_selection {self.det_selection!r}: "
+                             "expected 'global' or 'row'")
+        if self.det_topk not in ("exact", "approx"):
+            raise ValueError(f"det_topk {self.det_topk!r}: "
+                             "expected 'exact' or 'approx'")
 
     def cache_key(self) -> str:
         """Result-cache identity of the configuration: the JAX package's
@@ -101,11 +118,27 @@ class PipelineConfig:
 
     def det_key(self) -> str:
         """Device-detector identity, appended to :meth:`cache_key` for
-        results of the on-device detector: its gates and record budget (the
-        port has one selection, the exact global top-k, and one CCL whose
-        kernel and twin are bit-identical), ending in a ``torch`` tag."""
-        return (f"detglobal{self.det_min_count}-{self.det_min_len_px:g}"
-                f"-{self.det_min_density:g}-{self.det_max_records}-torch")
+        results of the on-device detector: the JAX package's spelling of
+        the selection, gates, record budget and (when not ``"exact"``)
+        top-k, ending in a ``torch`` tag. JAX's CCL part has no
+        counterpart: the port has one CCL, whose kernel and twin are
+        bit-identical."""
+        topk = "" if self.det_topk == "exact" else f"-{self.det_topk}"
+        return (f"det{self.det_selection}{self.det_min_count}"
+                f"-{self.det_min_len_px:g}-{self.det_min_density:g}"
+                f"-{self.det_max_records}{topk}-torch")
+
+    def det_kwargs(self) -> dict:
+        """The device detector's arguments under this configuration: every
+        caller of :func:`detect_segments_device` on a configuration's
+        behalf passes these, the selection and top-k included (the
+        function's own default selection is the row one)."""
+        return dict(max_segments=self.n_pad, min_count=self.det_min_count,
+                    min_len_px=self.det_min_len_px,
+                    min_density=self.det_min_density,
+                    selection=self.det_selection,
+                    max_records=self.det_max_records,
+                    topk_impl=self.det_topk)
 
 
 def pad_lines(segments: np.ndarray, n_pad: int):
@@ -181,10 +214,7 @@ def device_pipeline_full(images: torch.Tensor, model: cnn_mod.VPNet,
     """Grayscale images (B, H, W) in [0, 255] -> full pipeline outputs,
     with the on-device detector in front of :func:`device_pipeline_batch`
     (its outputs plus ``segments`` and ``segment_mask``)."""
-    lp, lmask = detect_segments_device(
-        images, max_segments=cfg.n_pad, min_count=cfg.det_min_count,
-        min_len_px=cfg.det_min_len_px, min_density=cfg.det_min_density,
-        max_records=cfg.det_max_records)
+    lp, lmask = detect_segments_device(images, **cfg.det_kwargs())
     l = torch.where(lmask[..., None], lineops.segments_to_homogeneous(lp), 0.0)
     out = device_pipeline_batch(l, lp, lmask, model, mean, cfg)
     out.update(segments=lp, segment_mask=lmask)

@@ -22,7 +22,6 @@ without a GPU (``--device cpu`` runs the kernels' plain twins). Each has a
 
 from __future__ import annotations
 
-import argparse
 import os
 import subprocess
 
@@ -43,15 +42,6 @@ def reference_examples() -> str:
     """The 2017 reference checkout's ``assets/examples`` directory, from
     ``$VP_TPU_REFERENCE_EXAMPLES``; empty (not at hand) when unset."""
     return os.environ.get("VP_TPU_REFERENCE_EXAMPLES", "")
-
-
-class NotPorted(argparse.Action):
-    """A flag of the JAX script that drives a path the port does not have
-    (ROADMAP's do-not-port list): using it is an argparse error saying so.
-    ``help`` names the path."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not accepted: {self.help}")
 
 
 def card(dev: torch.device) -> str:

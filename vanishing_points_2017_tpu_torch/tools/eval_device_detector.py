@@ -21,11 +21,8 @@ with copies of its last image.
 
     python -m vanishing_points_2017_tpu_torch.tools.eval_device_detector \\
         [--device cpu] [--count 50] [--batch 10] [--paths host,full,ideal] \\
+        [--det_selection global|row] [--det_topk exact|approx] \\
         [--horizon_tol T] [--cnn_dtype float32|bfloat16]
-
-``--det_selection`` and ``--det_topk`` chose the JAX detector's row
-selection and approximate top-k, which the port does not have (ROADMAP's
-do-not-port list): they are refused.
 """
 
 from __future__ import annotations
@@ -37,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from . import NotPorted, make_pipeline
+from . import make_pipeline
 
 PATHS = ("host", "full", "ideal")
 
@@ -120,10 +117,7 @@ def ideal_batch(images: torch.Tensor, labels: torch.Tensor, cfg) -> dict:
     from ..ops.lines_device import detect_segments_device
     from ..ops.sphere import sphere_image_uint8
 
-    lp, lmask = detect_segments_device(
-        images, max_segments=cfg.n_pad, min_count=cfg.det_min_count,
-        min_len_px=cfg.det_min_len_px, min_density=cfg.det_min_density,
-        max_records=cfg.det_max_records)
+    lp, lmask = detect_segments_device(images, **cfg.det_kwargs())
     l = torch.where(lmask[..., None], segments_to_homogeneous(lp), 0.0)
     img_u8 = sphere_image_uint8(l, lmask, size=cfg.sphere_size)
     _, hz = em_and_horizon(l, lp, labels, img_u8.to(torch.float32), lmask,
@@ -180,15 +174,21 @@ def path_line(path: str, res: dict, count: int) -> str:
 
 
 def add_detector_flags(ap: argparse.ArgumentParser) -> None:
-    """The JAX scripts' detector-path flags, refused."""
-    ap.add_argument("--det_selection", action=NotPorted,
-                    help="the detector's row selection is not ported "
-                         "(ROADMAP do-not-port list); the port's detector "
-                         "has the global selection only")
-    ap.add_argument("--det_topk", action=NotPorted,
-                    help="the approximate top-k is not ported (ROADMAP "
-                         "do-not-port list); the port's selection is the "
-                         "exact top-k only")
+    """The JAX scripts' detector flags: overrides of
+    ``PipelineConfig.det_selection`` and ``det_topk``."""
+    ap.add_argument("--det_selection", default=None,
+                    choices=("global", "row"),
+                    help="override PipelineConfig.det_selection")
+    ap.add_argument("--det_topk", default=None, choices=("exact", "approx"),
+                    help="override PipelineConfig.det_topk (approx is the "
+                         "one-stage exact top-k off the TPU)")
+
+
+def detector_overrides(args: argparse.Namespace) -> dict:
+    """The ``PipelineConfig`` fields that :func:`add_detector_flags`'
+    flags set."""
+    return {f"det_{k}": v for k in ("selection", "topk")
+            if (v := getattr(args, f"det_{k}")) is not None}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -219,7 +219,7 @@ def main(argv: list[str] | None = None) -> int:
                  f"{', '.join(PATHS)}")
 
     dev = require_device(args.device)
-    cfg = PipelineConfig()
+    cfg = PipelineConfig(**detector_overrides(args))
     if args.horizon_tol is not None:
         cfg = dataclasses.replace(cfg, horizon_pos_gate_tol=args.horizon_tol)
     if args.cnn_dtype:

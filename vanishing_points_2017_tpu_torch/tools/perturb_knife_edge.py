@@ -112,9 +112,7 @@ def detect_device(pipe, cfg, gray: np.ndarray):
     with torch.inference_mode():
         lp, lmask = detect_segments_device(
             torch.from_numpy(np.asarray(gray)[None]).to(pipe.device),
-            max_segments=cfg.n_pad, min_count=cfg.det_min_count,
-            min_len_px=cfg.det_min_len_px, min_density=cfg.det_min_density,
-            max_records=cfg.det_max_records)
+            **cfg.det_kwargs())
     return lp[0].cpu().numpy(), lmask[0].cpu().numpy()
 
 

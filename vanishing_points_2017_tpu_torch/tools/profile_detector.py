@@ -12,17 +12,20 @@ bench draws them (``bench.make_inputs``):
   (``pack_edge_masks``);
 * K1's raster CCL at 8, 4 and 2 passes (``connected_components``);
 * stats: run records, the global top-k selection, the canonical sort and
-  the per-component moments (``_component_stats``);
+  the per-component moments (``_component_stats``), then the same with
+  the row selection at ``runs_per_row`` 64 and 32 (the JAX script's
+  ``stats runs_per_row`` rows);
 * the whole detector (``detect_segments_device``) at each record budget
-  of ``--budgets``.
+  of ``--budgets``, exact and approximate top-k (``"approx"`` is the
+  one-stage exact top-k off the TPU), with the row selection, and at 4
+  and 2 CCL passes.
 
 The sub-stages should roughly add up to the whole detector at the shipped
 budget; the line ``sum of sub-stages`` gives the ratio (the rest: the
-weights, the NFA gates and the re-rank). The JAX script's runs_per_row
-rows (its row selection), its Pallas CCL rows and its ``PROF_BISECT``
-prefixes of ``_component_stats`` have no counterpart: the port has one
-selection (the exact global top-k) and one CCL (K1 on a GPU, its plain
-twin on the CPU).
+weights, the NFA gates and the re-rank). The JAX script's Pallas CCL rows
+and its ``PROF_BISECT`` prefixes of ``_component_stats`` have no
+counterpart: the port has one CCL (K1 on a GPU, its plain twin on the
+CPU) and no stop points inside the stats.
 
     python -m vanishing_points_2017_tpu_torch.tools.profile_detector \\
         [--device cpu] [--batch 16] [--iters 8] [--size 640] \\
@@ -101,12 +104,25 @@ def profile(images: torch.Tensor, iters: int, budgets=(32768,),
     wgt = torch.where(active, mag / 255.0, 0.0).reshape(b, -1)
     s = max(h, w) / 2.0
     shipped = budgets[0]
+    stats_args = (root, wgt, n_pad, (h - 1, w - 1), (float(w), float(h), s))
     bench(f"stats budget={shipped}", lambda: ld._component_stats(
-        root, wgt, n_pad, (h - 1, w - 1), shipped, (float(w), float(h), s)))
+        *stats_args, selection="global", max_records=shipped))
+    for rpr in (64, 32):
+        bench(f"stats runs_per_row={rpr}", lambda k=rpr: ld._component_stats(
+            *stats_args, runs_per_row=k, selection="row"))
+    whole = dict(max_segments=n_pad, selection="global")
     for budget in budgets:
-        bench(f"whole detector budget={budget}",
-              lambda r=budget: ld.detect_segments_device(
-                  images, max_segments=n_pad, max_records=r))
+        for topk in ("exact", "approx"):
+            tag = "" if topk == "exact" else " topk=approx"
+            bench(f"whole detector budget={budget}{tag}",
+                  lambda r=budget, t=topk: ld.detect_segments_device(
+                      images, **whole, max_records=r, topk_impl=t))
+    bench("whole detector selection=row", lambda: ld.detect_segments_device(
+        images, max_segments=n_pad, selection="row"))
+    for passes in (4, 2):
+        bench(f"whole detector ccl_passes={passes}",
+              lambda p=passes: ld.detect_segments_device(
+                  images, **whole, max_records=shipped, ccl_passes=p))
     parts = (rows["front (blur+grad)"] + rows["pack (edge bit-plane)"]
              + rows[f"ccl passes={ld.CCL_PASSES}"]
              + rows[f"stats budget={shipped}"])

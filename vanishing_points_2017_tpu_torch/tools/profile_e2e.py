@@ -113,11 +113,7 @@ def measure(dev: torch.device, batches=(16, 32), iters: int = 8,
 
         @torch.inference_mode()
         def det():
-            lp, lm = detect_segments_device(
-                imgs, max_segments=cfg.n_pad, min_count=cfg.det_min_count,
-                min_len_px=cfg.det_min_len_px,
-                min_density=cfg.det_min_density,
-                max_records=cfg.det_max_records)
+            lp, lm = detect_segments_device(imgs, **cfg.det_kwargs())
             return (torch.where(lm[..., None], segments_to_homogeneous(lp),
                                 0.0), lp, lm)
 

@@ -22,10 +22,8 @@ passed.
 
     python -m vanishing_points_2017_tpu_torch.tools.revalidate_detector \\
         [--device cpu] [--count 50] [--batch 10] [--skip_pins] \\
+        [--det_selection global|row] [--det_topk exact|approx] \\
         [--det_max_records R] [--horizon_tol T]
-
-``--det_selection`` and ``--det_topk`` are refused, as in
-``tools.eval_device_detector``.
 """
 
 from __future__ import annotations
@@ -95,7 +93,7 @@ def main(argv: list[str] | None = None) -> int:
     from ..device import require_device
     from ..pipeline import PipelineConfig
     from ..weights import weights_identity
-    from .eval_device_detector import add_detector_flags
+    from .eval_device_detector import add_detector_flags, detector_overrides
 
     ap = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
@@ -116,7 +114,7 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     dev = require_device(args.device)
-    overrides = {}
+    overrides = detector_overrides(args)
     if args.det_max_records is not None:
         overrides["det_max_records"] = args.det_max_records
     if args.horizon_tol is not None:

@@ -1,8 +1,8 @@
 """Arbitrate the device detector's noise gates and record budget
 (``scripts/sweep_detector_gates.py`` of the JAX package).
 
-Runs each detector variant (min_count, min_len_px, min_density, record
-budget) over two protocols at once:
+Runs each detector variant (selection, record budget, min_count,
+min_len_px, min_density) over two protocols at once:
 
 * the 2017 reference's three example photographs with an in-frame horizon
   (``$VP_TPU_REFERENCE_EXAMPLES``; skipped when they are not at hand),
@@ -12,12 +12,12 @@ budget) over two protocols at once:
   ground-truth horizons, scoring AUC@0.25.
 
 Each variant's detector feeds the one lines-in device program
-(``pipeline.device_pipeline_batch``). The JAX script's ``VARIANTS`` table
-restricted to its ``global`` rows: the shipped gates at budgets 32768 and
-16384. Its ``row`` rows (the row selection with a runs-per-row budget) and
-its ``global!`` row (the approximate top-k) drive detector paths the port
-does not have (ROADMAP's do-not-port list: one selection, the exact global
-top-k), so they are absent.
+(``pipeline.device_pipeline_batch``). The JAX script's ``VARIANTS``
+table: ``row`` rows (the row selection, the budget is ``runs_per_row``),
+``global`` rows (the exact global top-k, the budget is ``max_records``)
+and the ``global!`` row (``topk_impl="approx"``: JAX's TPU PartialReduce,
+which off the TPU, and so on the card, is the one-stage exact top-k over
+every run end).
 
     python -m vanishing_points_2017_tpu_torch.tools.sweep_detector_gates \\
         [--device cpu] [--count 16] [--size 640]
@@ -33,11 +33,28 @@ import torch
 
 from . import REFERENCE_HORIZONS, make_pipeline, reference_examples
 
-# (selection, max_records, min_count, min_len_px, min_density)
+# (selection, runs_per_row / max_records, min_count, min_len_px,
+# min_density); "global!" = global with topk_impl="approx"
 VARIANTS = [
+    ("row", 64, 15, 12.0, 0.70),     # row fallback
+    ("row", 64, 15, 10.0, 0.70),
+    ("row", 64, 15, 12.0, 0.00),     # density gate off
+    ("row", 48, 15, 12.0, 0.70),     # budget too small for real photos
     ("global", 32768, 15, 12.0, 0.70),   # shipped defaults
     ("global", 16384, 15, 12.0, 0.70),
+    ("global!", 32768, 15, 12.0, 0.70),  # approx top-k
 ]
+
+
+def variant_kwargs(sel: str, budget: int, cnt: int, ln: float, dens: float,
+                   n_pad: int) -> dict:
+    """A ``VARIANTS`` row -> the detector's arguments, as the JAX script
+    maps it."""
+    kw = dict(max_segments=n_pad, min_count=cnt, min_len_px=ln,
+              min_density=dens, selection=sel.rstrip("!"),
+              topk_impl="approx" if sel.endswith("!") else "exact")
+    kw["max_records" if sel.startswith("global") else "runs_per_row"] = budget
+    return kw
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -95,8 +112,7 @@ def main(argv: list[str] | None = None) -> int:
     print(f"{'sel':>7} {'budget':>6} {'cnt':>3} {'len':>4} {'dens':>4} "
           "| photo errs -> worst | synthAUC")
     for sel, budget, cnt, ln, dens in VARIANTS:
-        kw = dict(max_segments=cfg.n_pad, min_count=cnt, min_len_px=ln,
-                  min_density=dens, max_records=budget)
+        kw = variant_kwargs(sel, budget, cnt, ln, dens, cfg.n_pad)
         errs = []
         if photos:
             out = run_lines(*detect([p[3] for p in photos], kw))
