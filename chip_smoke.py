@@ -46,6 +46,14 @@ GPU) is what runs:
   files runs through ``benchmark.main`` on both paths (host LSD, and
   ``--device_detect``): every horizon and the AUC within 0.02 of JAX's on
   the same files;
+* the other JPEG forms: every file of ``assets/examples/jpeg_forms/``
+  (``scripts/make_jpeg_forms_fixtures.py``: sampling ratios, CMYK and
+  YCCK, block-smoothed progressive files, arithmetic coding, lossless)
+  decodes to the JAX package's pixels (the committed digests) by the
+  decode path its form names; each 640x480 form is timed against the
+  port's baseline write of the same array; then the same mini with P1026
+  as YCCK (2x2 Y and K) and then as h1v2 runs through ``benchmark.main``
+  on both paths: every horizon and the AUC within 0.02 of JAX's;
 * the reference-shaped entry points (``em/compat.py``): ``renew_cnn_result``
   and ``run_em_single`` on bundled scene 0's LSD lines (K2 launched once,
   the horizon of the returned VPs within 0.02 of JAX's);
@@ -127,6 +135,7 @@ them), ``launches_per_batch`` is the main path's count for its one batch,
 steps, ``launches_sharded`` the sharded serving runs' (all ranks),
 ``launches_bench`` the bench phase's (every loop, warm-up and stage pass),
 ``launches_progressive`` the progressive phase's two driver runs,
+``launches_jpeg_forms`` the jpeg-forms phase's four driver runs,
 ``launches_tools`` the tools phase's (probes, paths, gate and profiles),
 ``launches_hd`` the HD gate's, ``launches_em_trajectory`` the
 em-trajectory phase's (the traced frames' own paths and K2 on JAX's
@@ -201,6 +210,13 @@ MINI_RUNS = {"yud": ("yud", "york", False), "ecd": ("ecd", "eurasian", False),
 PROG_PHOTOS = ("P1026", "P1027")
 PROG_RUNS = {"york": False, "york_dev": True}
 PROG_TIMED, PROG_DECODES = ("P1026", "P1026_1024"), 5
+# the jpeg-forms phase: the fixtures of scripts/make_jpeg_forms_fixtures.py
+# and, per driven photograph, the fixture that takes P1026's place in the
+# same mini (run prefix in the reference -> file)
+FORMS_REFERENCE = os.path.join(ROOT, "assets", "examples",
+                               "jax_reference_jpeg_forms.npz")
+FORMS_DIR = os.path.join(ROOT, "assets", "examples", "jpeg_forms")
+FORMS_DRIVEN = {"ycck": "P1026_ycck", "h1v2": "P1026_h1v2"}
 # the bench phase: batches per loop, repeats, and how many of its 32
 # horizons may lie beyond HORIZON_TOL of JAX's (the synthetic protocol's
 # knife-edge allowance)
@@ -991,6 +1007,156 @@ def progressive_phase(card: str, kernels_all, ccl_k, sph_k,
                   f"progressive {run}: horizons {errs} beyond {HORIZON_TOL}")
     if failed:
         raise AssertionError(f"progressive phase: {failed}")
+    return phase
+
+
+def jpeg_forms_phase(card: str, kernels_all, ccl_k, sph_k,
+                     total: dict) -> dict:
+    """The JPEG forms past 1x1 / 2x1 / 2x2 YCbCr and gray through the
+    decoder and both serving paths, held against
+    ``assets/examples/jax_reference_jpeg_forms.npz``: every fixture's
+    pixels, the decode time per form at 640x480 against the port's
+    baseline write of the same array, and the York Urban mini with P1026
+    as YCCK and as h1v2. Every check runs and logs before the phase fails
+    on the first that did not hold. Returns the phase's launches per
+    kernel source."""
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch import benchmark as bench
+    from vanishing_points_2017_tpu_torch import weights as W
+    from vanishing_points_2017_tpu_torch.data import datasets as dsets
+    from vanishing_points_2017_tpu_torch.data import io as dio
+    from vanishing_points_2017_tpu_torch.data import jpeg, minisets
+    from vanishing_points_2017_tpu_torch.data.cache import StageCache
+    from vanishing_points_2017_tpu_torch.pipeline import PipelineConfig
+
+    failed: list = []
+    check = checker(failed)
+    ref = np.load(FORMS_REFERENCE)
+    cfg = PipelineConfig()
+    stage = "result_w" + W.weights_identity() + "_m" + W.mean_identity()
+    phase: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "yud")
+        minisets.make_mini_yud(root, n_eval=len(PROG_PHOTOS))
+        photo = os.path.join(root, "P1026", "P1026.jpg")
+        source = dio.load_image(photo)
+
+        # ---- every fixture against JAX's pixels, and the decode path the
+        # form names
+        blobs = {}
+        for name in (str(n) for n in ref["files"]):
+            path = os.path.join(FORMS_DIR, f"{name}.jpg")
+            form = str(ref[f"form_{name}"])
+            with open(path, "rb") as fh:
+                blobs[name] = fh.read()
+            check(hashlib.sha256(blobs[name]).hexdigest()
+                  == str(ref[f"file_sha256_{name}"]),
+                  f"jpeg-forms {name}: not the committed file")
+            px = dio.load_image(path)
+            shape = tuple(int(v) for v in ref[f"shape_{name}"])
+            same = (hashlib.sha256(np.ascontiguousarray(px).tobytes())
+                    .hexdigest() == str(ref[f"sha256_{name}"])
+                    and px.shape == shape)
+            frame = jpeg._parse(blobs[name]).frame
+            path_ok = (("arithmetic" not in form or frame.arithmetic)
+                       and ("lossless" not in form or frame.lossless)
+                       and ("smooth" not in form
+                            or jpeg._smoothing_ok(frame.comps)))
+            log(f"jpeg-forms {name} {px.shape} ({form}): pixels equal "
+                f"JAX's: {same}; decode path as named: {path_ok}")
+            check(same, f"jpeg-forms {name}: pixels differ from JAX's")
+            check(path_ok, f"jpeg-forms {name}: not decoded as {form}")
+            check(dio.image_size(path) == shape[:2],
+                  f"jpeg-forms {name}: image_size")
+
+        # ---- host decode per form at 640x480, against the port's baseline
+        # write of the same array (the mini's P1026) at the form's quality
+        def decode_ms(blob: bytes) -> float:
+            jpeg.decode_jpeg(blob)
+            times = []
+            for _ in range(PROG_DECODES):
+                t0 = time.perf_counter()
+                jpeg.decode_jpeg(blob)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        baseline: dict = {}
+        for name in (str(n) for n in ref["timed"]):
+            quality = int(ref[f"quality_{name}"])
+            if quality not in baseline:
+                base = jpeg.encode_jpeg(source, quality)
+                baseline[quality] = (len(base), decode_ms(base))
+            ms = decode_ms(blobs[name])
+            size, base_ms = baseline[quality]
+            log(f"host decode 640x480 {name} ({ref[f'form_{name}']}, "
+                f"quality {quality}): {ms:.2f} ms vs baseline 4:2:0 "
+                f"{base_ms:.2f} ms per image (x{ms / base_ms:.2f}; median "
+                f"of {PROG_DECODES}; {len(blobs[name])} / {size} bytes) "
+                f"({card})")
+
+        # ---- the mini with P1026 in each driven form, both paths
+        adapter, _ = dsets.DATASETS["york"]
+        for prefix, fixture in FORMS_DRIVEN.items():
+            with open(photo, "wb") as fh:
+                fh.write(blobs[fixture])
+            records, start = adapter(root)
+            evaluated = records[start:]
+            for run, detect in PROG_RUNS.items():
+                key = f"{prefix}_{run}"
+                res_dir = os.path.join(tmp, "results", key)
+                cache = StageCache(os.path.join(res_dir, "york"),
+                                   bench.cache_key(cfg, detect))
+                for rec in records[:start]:  # the skipped split
+                    cache.save(rec.name, stage, hp1=np.zeros(3),
+                               hp2=np.zeros(3))
+                argv = ["--yud", "--dataset_dir", root, "--result_dir",
+                        res_dir, "--run_em", "--batch", str(len(evaluated))]
+                argv += ["--device_detect"] if detect else []
+                buf = io.StringIO()
+                reset(kernels_all)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = bench.main(argv)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                for k in kernels_all:
+                    phase[k.source] = phase.get(k.source, 0) + k.launches
+                count(kernels_all, total, f"jpeg-forms {key}",
+                      need=(ccl_k, sph_k) if detect else (sph_k,))
+                text = buf.getvalue().splitlines()
+                aucs = [float(ln.split()[-1]) for ln in text
+                        if ln.startswith("AUC:")]
+                n_err = sum(ln.startswith("max_error:") for ln in text)
+                check(rc == 0 and len(aucs) == 1 and n_err == len(evaluated),
+                      f"jpeg-forms {key}: exit {rc}, {n_err} max_error lines")
+                if not aucs:
+                    log("\n".join(text[-20:]))
+                    continue
+                errs = []
+                for i, rec in enumerate(evaluated):
+                    check(str(ref[f"{key}_names"][i]) == rec.name,
+                          f"jpeg-forms {key}: record {i} is {rec.name}")
+                    r = cache.load(rec.name, stage)
+                    errs.append(dio.normalized_horizon_error(
+                        np.cross(r["hp1"].astype(np.float64),
+                                 r["hp2"].astype(np.float64)),
+                        np.cross(ref[f"{key}_hp1"][i].astype(np.float64),
+                                 ref[f"{key}_hp2"][i].astype(np.float64)),
+                        640, 480))
+                jax_auc = float(ref[f"auc_{key}"])
+                log(f"jpeg-forms {key}: AUC {aucs[0]:.5f} vs JAX "
+                    f"{jax_auc:.5f}; horizons from JAX's "
+                    f"{[round(float(e), 5) for e in errs]}; driver wall "
+                    f"{wall_s:.1f} s for {len(records)} records ({card})")
+                check(abs(aucs[0] - jax_auc) <= AUC_TOL,
+                      f"jpeg-forms {key}: AUC {aucs[0]} vs JAX {jax_auc}")
+                check(all(e <= HORIZON_TOL for e in errs),
+                      f"jpeg-forms {key}: horizons {errs} beyond "
+                      f"{HORIZON_TOL}")
+    if failed:
+        raise AssertionError(f"jpeg-forms phase: {failed}")
     return phase
 
 
@@ -2524,6 +2690,12 @@ def main() -> int:
     per_prog = progressive_phase(card, kernels_all, ccl_k, sph_k, total)
     log(f"progressive phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- the other JPEG forms: the decoder, then both paths on the York
+    # mini with P1026 as YCCK and as h1v2
+    t0 = time.perf_counter()
+    per_forms = jpeg_forms_phase(card, kernels_all, ccl_k, sph_k, total)
+    log(f"jpeg-forms phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- the reference-shaped entry points on scene 0's LSD lines
     compat_phase(card, kernels_all, sph_k, total, params, mean, bundles[0],
                  host_ref["host_hp1"][0], host_ref["host_hp2"][0])
@@ -2552,6 +2724,7 @@ def main() -> int:
              launches_sharded=per_sharded[ccl_k.source],
              launches_bench=per_bench[ccl_k.source],
              launches_progressive=per_prog[ccl_k.source],
+             launches_jpeg_forms=per_forms[ccl_k.source],
              launches_tools=per_tools[ccl_k.source],
              launches_hd=per_hd[ccl_k.source],
              launches_em_trajectory=per_em[ccl_k.source],
@@ -2570,6 +2743,7 @@ def main() -> int:
              launches_sharded=per_sharded[sph_k.source],
              launches_bench=per_bench[sph_k.source],
              launches_progressive=per_prog[sph_k.source],
+             launches_jpeg_forms=per_forms[sph_k.source],
              launches_tools=per_tools[sph_k.source],
              launches_hd=per_hd[sph_k.source],
              launches_em_trajectory=per_em[sph_k.source],

@@ -3,8 +3,10 @@
 Decoder: pixel equality with PIL (libjpeg's default decode) on the JAX
 miniset writer's files at the three data-set sizes, on grayscale files, on
 4:4:4 / 4:2:2 / 4:2:0 colour, odd sizes, restart markers, a noise image
-and a flat one; arithmetic-coded and CMYK files raise (progressive files:
-tests/test_torch_jpeg_progressive.py). Encoder: the same bytes
+and a flat one; arithmetic-coded and CMYK files decode as the JAX package
+reads them, corrupt and non-JPEG bytes raise (progressive files:
+tests/test_torch_jpeg_progressive.py; the other forms:
+tests/test_torch_jpeg_forms.py). Encoder: the same bytes
 on two calls, PIL's quantisation tables, PIL's pixels from the port's
 file, and an error against the source no worse than 1.05 x PIL's own
 quality-92 file.
@@ -116,30 +118,48 @@ def test_decoder_skips_app_and_comment_segments():
 
 
 def test_unsupported_files_raise(tmp_path):
-    """Arithmetic-coded progressive (SOF10) and CMYK files, non-JPEG bytes
-    and a file cut inside its scan raise; a Huffman progressive file
-    (refused until the port read SOF2) now reads as PIL reads it."""
+    """An arithmetic-coded progressive (SOF10) file of the test writer and
+    PIL's CMYK file read as the JAX package reads them (both refused
+    until the port read them); SOF10 forged onto Huffman bytes, non-JPEG
+    bytes and a file cut inside its scan raise; a Huffman progressive file
+    (refused until the port read SOF2) reads as PIL reads it."""
+    import jpeg_progressive_writer as W
+    from vanishing_points_2017_tpu.data import io as jio
+
     rgb = _noise((32, 32, 3))
     prog = _pil_bytes(rgb, progressive=True)
     np.testing.assert_array_equal(jpeg.decode_jpeg(prog), _pil_pixels(prog))
     i = prog.index(b"\xff\xc2")
-    arith = prog[:i + 1] + b"\xca" + prog[i + 2:]
-    with pytest.raises(ValueError, match="arithmetic-coded progressive"):
-        jpeg.decode_jpeg(arith)
+    forged = prog[:i + 1] + b"\xca" + prog[i + 2:]
+    with pytest.raises(ValueError, match="corrupt JPEG: an arithmetic"):
+        jpeg.decode_jpeg(forged)
+    rng = np.random.default_rng(0)
+    frame = W.Frame(32, 32, "420")
+    qts = {0: rng.integers(1, 40, 64), 1: rng.integers(1, 40, 64)}
+    coefs = W.random_coefficients(frame, rng, 0.3, [qts[0], qts[1], qts[1]])
+    arith = W.write_jpeg(frame, coefs, qts, W.full_script(3, 1, ((1, 63, 1),)),
+                         arithmetic=True, restart=2)
+    assert arith[arith.index(b"\xff\xca") + 1] == 0xCA
+    np.testing.assert_array_equal(jpeg.decode_jpeg(arith), _pil_pixels(arith))
     assert jpeg.jpeg_size(_pil_bytes(rgb)) == (32, 32)
     buf = io.BytesIO()
     Image.fromarray(rgb).convert("CMYK").save(buf, format="JPEG")
-    with pytest.raises(ValueError, match="4 components"):
-        jpeg.decode_jpeg(buf.getvalue())
+    path = tmp_path / "cmyk.jpg"
+    path.write_bytes(buf.getvalue())
+    np.testing.assert_array_equal(jpeg.decode_jpeg(buf.getvalue()),
+                                  jio.load_image(str(path)))
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.decode_jpeg(b"\x89PNG....")
     good = _pil_bytes(rgb)
     with pytest.raises(ValueError, match="JPEG"):
         jpeg.decode_jpeg(good[:len(good) // 2])  # cut inside the scan
     path = tmp_path / "p.jpg"
-    path.write_bytes(arith)
+    path.write_bytes(forged)
     with pytest.raises(ValueError, match="p.jpg.*arithmetic"):
         tio.load_image(str(path))
+    path.write_bytes(arith)
+    np.testing.assert_array_equal(tio.load_image(str(path)),
+                                  _pil_pixels(arith))
     path.write_bytes(prog)
     np.testing.assert_array_equal(tio.load_image(str(path)),
                                   _pil_pixels(prog))

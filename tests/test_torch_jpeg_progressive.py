@@ -11,9 +11,9 @@ libjpeg-turbo), every comparison exact (uint8 equality, shapes equal).
   markers): the port's decode equals PIL's decode of the same bytes, and
   the port's decode of a baseline file of the same coefficients.
 * What libjpeg only warns about decodes as PIL decodes it; what it refuses
-  raises; files that take libjpeg's block-smoothing path raise a
-  ``ValueError`` that says so; quantisation tables are latched at each
-  component's first scan.
+  raises; files that take libjpeg-turbo's block-smoothing path decode as
+  PIL decodes them (more patterns: tests/test_torch_jpeg_forms.py);
+  quantisation tables are latched at each component's first scan.
 * The committed fixtures (``scripts/make_progressive_fixtures.py``) and
   the York Urban adapter and driver on a mini whose evaluated files are
   progressive.
@@ -277,8 +277,8 @@ def test_bogus_progressions_decode_as_pil(name):
     _check_crafted(frame, qts, coefs, WARNED[name])
 
 
-# files that leave bits unknown, and the only ones of them libjpeg-turbo
-# decodes plainly (no smoothing): the port decodes those as PIL does
+# files that leave bits unknown: those libjpeg-turbo decodes plainly (no
+# smoothing, False) and those it smooths (True)
 PARTIAL = {
     # coefficients 10-63 never sent: smoothing estimates 1-9 only
     "band_10_63_missing": ([((0,), 0, 0, 0, 0), ((0,), 1, 9, 0, 0)], False),
@@ -303,31 +303,38 @@ PARTIAL = {
 @pytest.mark.parametrize("name", list(PARTIAL))
 def test_unknown_bits_decode_as_pil_or_raise(name):
     """Where libjpeg-turbo's ``smoothing_ok`` holds (DC at least partly
-    known, one of coefficients 1-9 short of its last bit) the port raises
-    a ``ValueError`` naming the smoothing; elsewhere the coefficients are
-    decoded as they stand, as PIL decodes them."""
+    known, one of coefficients 1-9 short of its last bit) the port smooths
+    the blocks as libjpeg-turbo 3.1.3 does (refused until the port did);
+    elsewhere the coefficients are decoded as they stand. Both as PIL
+    decodes them; the plain ones also as the IDCT of their coefficients
+    alone."""
     script, smooths = PARTIAL[name]
     rng = np.random.default_rng(11)
     frame, qts, coefs = _case(rng, (32, 24), "gray", 0.3)
     blob = W.write_jpeg(frame, coefs, qts, script)
-    if smooths:
-        with pytest.raises(ValueError, match="block smoothing"):
-            jpeg.decode_jpeg(blob)
-    else:
-        np.testing.assert_array_equal(jpeg.decode_jpeg(blob),
-                                      _pil_pixels(blob))
+    parsed = jpeg._parse(blob)
+    assert jpeg._smoothing_ok(parsed.frame.comps) == smooths
+    got = jpeg.decode_jpeg(blob)
+    np.testing.assert_array_equal(got, _pil_pixels(blob))
+    if not smooths:
+        c = parsed.frame.comps[0]
+        plain = jpeg._idct_blocks(parsed.coefs.reshape(
+            c.bh, c.bw, 8, 8).astype(np.int64) * c.qt.reshape(8, 8))
+        np.testing.assert_array_equal(plain.transpose(0, 2, 1, 3).reshape(
+            c.bh * 8, c.bw * 8)[:c.h, :c.w], got)
 
 
 def test_smoothing_refused_in_any_component():
     """A colour file whose luma is complete and whose Cr leaves
-    coefficient 1 at Al = 1 is refused too."""
+    coefficient 1 at Al = 1 takes the smoothing path too (refused until
+    the port smoothed): decoded as PIL decodes it."""
     rng = np.random.default_rng(12)
     frame, qts, coefs = _case(rng, (32, 24), "420", 0.3)
     script = W.full_script(3)
     script[-1] = ((2,), 1, 63, 0, 1)
     blob = W.write_jpeg(frame, coefs, qts, script)
-    with pytest.raises(ValueError, match="component 3.*block smoothing"):
-        jpeg.decode_jpeg(blob)
+    assert jpeg._smoothing_ok(jpeg._parse(blob).frame.comps)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(blob), _pil_pixels(blob))
 
 
 @pytest.mark.parametrize("ss,se,ah,al", [(0, 1, 0, 0), (1, 5, 0, 0),
@@ -382,26 +389,29 @@ def test_quant_tables_latched_at_first_scan(progressive):
 
 # ------------------------------------------------- still refused, sizes
 
-def test_other_kinds_still_raise():
-    """Arithmetic coding (SOF9, SOF10), 12-bit samples and CMYK are still
-    refused, with what the file is in the message."""
+def test_other_kinds_still_raise(tmp_path):
+    """12-bit samples are still refused, with what the file is in the
+    message. Arithmetic-coded files were refused until the port read them:
+    SOF9 and SOF10 forged onto these Huffman bytes now decode to PIL's
+    garbage (tests/test_torch_jpeg.py has a forged file that raises as
+    corrupt, where libjpeg only warns). A progressive
+    CMYK file (refused until the port read 4 components) reads as the JAX
+    package reads it."""
     rgb = _noise((32, 32, 3))
     base = jpeg.encode_jpeg(rgb)
     prog = _pil_progressive(rgb, quality=92)
     for blob, sof, kind in ((base, 0xC0, 0xC9), (prog, 0xC2, 0xCA)):
         i = blob.index(bytes([0xFF, sof]))
         arith = blob[:i + 1] + bytes([kind]) + blob[i + 2:]
-        with pytest.raises(ValueError,
-                           match=f"arithmetic-coded.*SOF{kind - 0xC0}"):
-            jpeg.decode_jpeg(arith)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(arith),
+                                      _pil_pixels(arith))
         twelve = blob[:i + 4] + bytes([12]) + blob[i + 5:]
         with pytest.raises(ValueError, match="12-bit"):
             jpeg.decode_jpeg(twelve)
     buf = io.BytesIO()
     Image.fromarray(rgb).convert("CMYK").save(buf, format="JPEG",
                                               progressive=True)
-    with pytest.raises(ValueError, match="4 components"):
-        jpeg.decode_jpeg(buf.getvalue())
+    _assert_like_jax(tmp_path, buf.getvalue())
 
 
 def test_jpeg_size_and_image_size_read_sof2(tmp_path):

@@ -3,9 +3,11 @@
 The port does not use PIL, so :func:`load_image` decodes the file itself,
 by its signature, to the array the JAX package's ``load_image`` gets from
 PIL: PNG with ``zlib`` and numpy (every colour type and bit depth of the
-standard, palette included, Adam7-interlaced or not), sequential and
-progressive JPEG through ``data/jpeg.py`` (the datasets' format); other
-formats (BMP, TIFF, GIF, WebP, ...) raise. :func:`encode_png` writes
+standard, palette included, Adam7-interlaced or not), and every JPEG
+that PIL 12.1.0 (libjpeg-turbo 3.1.3) opens through ``data/jpeg.py``
+(sequential, progressive, arithmetic-coded and 8-bit lossless; gray,
+YCbCr, RGB, CMYK and YCCK at any integral sampling; the datasets'
+format); other formats (BMP, TIFF, GIF, WebP, ...) raise. :func:`encode_png` writes
 8-bit grayscale and RGB PNGs.
 :func:`resize_max` reproduces Pillow's LANCZOS resize pixel for pixel. :func:`detect_lsd_lines`
 runs the host LSD (``lsd.py``) and normalizes its segments.
@@ -189,9 +191,10 @@ def encode_png(img: np.ndarray) -> bytes:
 
 
 def image_size(path: str) -> tuple[int, int]:
-    """(height, width) of a PNG or JPEG file from its header: the first
-    64 KiB are read, and the rest only where a JPEG's frame header lies
-    beyond them (after a large embedded profile or thumbnail)."""
+    """(height, width) of a PNG or JPEG file (any frame header the
+    decoder reads, SOF0-3 and SOF9-10) from its header: the first 64 KiB
+    are read, and the rest only where a JPEG's frame header lies beyond
+    them (after a large embedded profile or thumbnail)."""
     from . import jpeg
 
     with open(path, "rb") as f:
@@ -210,12 +213,12 @@ def image_size(path: str) -> tuple[int, int]:
 
 
 def load_image(path: str) -> np.ndarray:
-    """PNG or JPEG file (sequential or progressive) -> RGB (or grayscale)
-    uint8 array, by the file's signature, as the JAX package's
-    ``load_image`` gets it from PIL: "L" and "RGB" files as they are, every
-    other mode through ``convert("RGB")`` (alpha dropped, gray replicated,
-    1-bit gray 0 / 255, 16-bit gray clipped to 255). Any other format
-    raises."""
+    """PNG or JPEG file -> RGB (or grayscale) uint8 array, by the file's
+    signature, as the JAX package's ``load_image`` gets it from PIL: "L"
+    and "RGB" files as they are, every other mode through
+    ``convert("RGB")`` (alpha dropped, gray replicated, 1-bit gray 0 /
+    255, 16-bit gray clipped to 255, CMYK by Pillow's ``cmyk2rgb``). Any
+    other format raises."""
     from . import jpeg
 
     with open(path, "rb") as f:

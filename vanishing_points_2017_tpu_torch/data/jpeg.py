@@ -3,24 +3,47 @@
 The JAX package reads the datasets' JPEG files through PIL, that is,
 through libjpeg with its default settings. The port uses no PIL, and the
 host LSD must see the same pixels in both packages, so :func:`decode_jpeg`
-reproduces that decode bit for bit: the integer "islow" inverse DCT
+reproduces that decode bit for bit, pinned to what PIL 12.1.0 with its
+bundled libjpeg-turbo 3.1.3 gives (filters and conversions differ
+between libjpeg and Pillow releases): the integer "islow" inverse DCT
 (13-bit constants, 2 extra bits between the passes, the range-limit
-table), "fancy" triangle upsampling of 2:1 chroma (h2v1 and h2v2) with
-libjpeg's rounding biases and plain replication where a component is at
-most 2 samples wide, and the 16-bit fixed-point YCbCr -> RGB tables.
-Each component is dequantised with the table in force at its first scan,
-where libjpeg latches it.
+table), "fancy" triangle upsampling of h2v1, h2v2 (libjpeg's rounding
+biases, plain replication where a plane is at most 2 samples wide) and
+h1v2 (its vertical filter, biases 1 above and 2 below, any width), plain
+replication for every other integral ratio, and the 16-bit fixed-point
+YCbCr -> RGB tables. Each component is dequantised with the table in
+force at its first scan, where libjpeg latches it.
 
-Read: baseline and extended sequential DCT (SOF0/SOF1) and progressive
-DCT (SOF2), Huffman coded, 8 bits, 1 or 3 components, sampling 1x1, 2x1
-and 2x2, restart intervals, interleaved and non-interleaved scans, any
-size. A progressive file's scans (spectral selection and successive
+Read, as PIL reads them: baseline and extended sequential DCT (SOF0 and
+SOF1) and progressive DCT (SOF2), Huffman coded, and both arithmetic
+coded (SOF9, SOF10: T.81's QM decoder with the DAC segment's
+conditioning or the default); 8-bit lossless (SOF3, Huffman coded:
+predictors 1-7, a point transform, restarts of whole MCU rows, the
+samples as they are and components replicated, as libjpeg-turbo gives
+them); 1, 3 or 4 components, sampling factors 1-4 at integral ratios,
+restart intervals, interleaved and non-interleaved scans, any size. A
+progressive file's scans (spectral selection and successive
 approximation) build the same coefficient arrays a sequential file
-carries, then the same output pass runs. Where a progressive file leaves
-any of a component's coefficients 1-9 (zigzag order) short of their last
-bit, libjpeg-turbo smooths the blocks instead (``jdcoefct.c``,
-``smoothing_ok``); such a file raises. So do lossless, arithmetic-coded,
-12-bit and 4-component files: the ``ValueError`` says what the file is.
+carries, then the same output pass runs; where they leave any
+coefficient 1-9 (zigzag order) short of its last bit, libjpeg-turbo
+3.1.3's block smoothing (``jdcoefct.c``'s ``decompress_smooth_data``: a
+5 x 5 block neighbourhood of DC values, DC interpolation where
+coefficients 1-9 were never sent) estimates them first. Four components
+are CMYK, or YCCK under an Adobe transform other than 0 (turned CMYK
+with the YCbCr tables); PIL reads every such file as Adobe's inverted
+CMYK and the JAX package's ``load_image`` converts it with Pillow's
+``cmyk2rgb``, so :func:`decode_jpeg` returns that RGB.
+
+Refused, as PIL 12.1.0 refuses them (each ``ValueError`` says what the
+file is): 12-bit samples and lossless of other than 8 bits,
+hierarchical (SOF5-7, SOF13-15) and arithmetic-coded lossless (SOF11)
+frames, a height given by a DNL marker, fractional sampling ratios, more
+than 10 blocks per MCU in an interleaved scan, lossless YCbCr or YCCK
+(libjpeg converts no colour in lossless mode), lossless restarts inside an
+MCU row, 2 components. One difference: PIL opens an arithmetic-coded
+file only while its scans lie in Pillow's first read block
+(``ImageFile.MAXBLOCK``, 64 KiB by default), since libjpeg's arithmetic
+decoder cannot wait for more input; the port reads such files whole.
 
 :func:`encode_jpeg` writes what PIL's ``save(quality=q)`` writes with its
 defaults (JFIF, 4:2:0 for colour, the standard's Huffman tables, no
@@ -29,8 +52,9 @@ fixed-point RGB -> YCbCr, the h2v2 box downsample with alternating bias,
 the "islow" forward DCT, round-half-away quantisation), so one array
 gives the same bytes on every machine.
 
-The marker layer, the DCTs, the sampling and the colour transforms are
-numpy on whole planes; the bit-serial Huffman coder is C++
+The marker layer, the DCTs, the smoothing, the sampling and the colour
+transforms are numpy on whole planes; the bit-serial entropy coders
+(Huffman, arithmetic, lossless and its prediction) are C++
 (``csrc/jpeg_entropy.cpp``), built with g++ at first use into the
 git-ignored ``build/jpeg/``. A failed build raises; nothing falls back.
 """
@@ -58,7 +82,8 @@ _ERRORS = {-1: "the data ends inside a scan",
            -4: "a restart marker is missing or out of sequence",
            -5: "a scan names a Huffman table that was not defined",
            -6: "the output buffer is too small",
-           -7: "a coefficient outside the baseline range"}
+           -7: "a coefficient outside the baseline range",
+           -8: "an arithmetic-coded magnitude or run past its range"}
 
 # natural (row-major) index of the k-th coefficient in zigzag order
 ZIGZAG = np.array([
@@ -68,12 +93,9 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 _SOF_NAMES = {
-    0xC3: "lossless (SOF3)",
     0xC5: "differential sequential DCT (SOF5)",
     0xC6: "differential progressive DCT (SOF6)",
     0xC7: "differential lossless (SOF7)",
-    0xC9: "arithmetic-coded sequential DCT (SOF9)",
-    0xCA: "arithmetic-coded progressive DCT (SOF10)",
     0xCB: "arithmetic-coded lossless (SOF11)",
     0xCD: "arithmetic-coded differential sequential DCT (SOF13)",
     0xCE: "arithmetic-coded differential progressive DCT (SOF14)",
@@ -103,6 +125,17 @@ def _load() -> ctypes.CDLL:
             lib.jpeg_decode_scan_progressive.argtypes = [
                 p, i64, ctypes.c_int, p, i64, i64, ctypes.c_int, p,
                 *[ctypes.c_int] * 4, p]
+            lib.jpeg_decode_scan_arith.restype = i64
+            lib.jpeg_decode_scan_arith.argtypes = [
+                p, i64, ctypes.c_int, p, i64, i64, ctypes.c_int, p,
+                *[ctypes.c_int] * 5, p]
+            lib.jpeg_decode_scan_lossless.restype = i64
+            lib.jpeg_decode_scan_lossless.argtypes = [p, i64, ctypes.c_int, p,
+                                                      i64, i64, ctypes.c_int,
+                                                      p, p]
+            lib.jpeg_undifference.restype = None
+            lib.jpeg_undifference.argtypes = [p, i64, i64, i64,
+                                              *[ctypes.c_int] * 3, p, p]
             lib.jpeg_encode_scan.restype = i64
             lib.jpeg_encode_scan.argtypes = [p, ctypes.c_int, p, i64, i64,
                                              ctypes.c_int, p, p, i64]
@@ -129,6 +162,9 @@ class _Component:
         self.cid, self.hs, self.vs, self.tq = cid, hs, vs, tq
         self.seen = False
         self.qt = None  # the table latched at the component's first scan
+        # lossless: (predictor, point transform, rows that predict from
+        # the left alone)
+        self.lossless = None
         # the successive-approximation bit last reached for each zigzag
         # coefficient, -1 while it was never coded (libjpeg's coef_bits)
         self.coef_bits = np.full(64, -1, np.int64)
@@ -138,13 +174,17 @@ class _Frame:
     """The frame header and the block layout that follows from it."""
 
     def __init__(self, height: int, width: int, comps: list,
-                 progressive: bool = False):
+                 progressive: bool = False, arithmetic: bool = False,
+                 lossless: bool = False):
         self.height, self.width, self.comps = height, width, comps
-        self.progressive = progressive
+        self.progressive, self.arithmetic = progressive, arithmetic
+        self.lossless = lossless
+        # a lossless frame's "block" is one sample
+        self.unit = unit = 1 if lossless else 8
         self.hmax = max(c.hs for c in comps)
         self.vmax = max(c.vs for c in comps)
-        self.mcus_x = _ceil_div(width, 8 * self.hmax)
-        self.mcus_y = _ceil_div(height, 8 * self.vmax)
+        self.mcus_x = _ceil_div(width, unit * self.hmax)
+        self.mcus_y = _ceil_div(height, unit * self.vmax)
         offset = 0
         for c in comps:
             # the component's own size, and its block array padded to
@@ -153,7 +193,7 @@ class _Frame:
             c.h = _ceil_div(height * c.vs, self.vmax)
             c.bw, c.bh = self.mcus_x * c.hs, self.mcus_y * c.vs
             c.offset = offset
-            offset += c.bw * c.bh * 64
+            offset += c.bw * c.bh * unit * unit
         self.n_coefs = offset
 
     def layout(self, comps: list, tables: list | None = None):
@@ -168,41 +208,50 @@ class _Frame:
             rows.append([1 if single else c.hs, 1 if single else c.vs,
                          c.bw, c.offset, td, ta])
         if single:
-            return (np.array(rows, np.int64), _ceil_div(comps[0].w, 8),
-                    _ceil_div(comps[0].h, 8))
+            return (np.array(rows, np.int64),
+                    _ceil_div(comps[0].w, self.unit),
+                    _ceil_div(comps[0].h, self.unit))
+        if sum(c.hs * c.vs for c in comps) > 10:
+            raise ValueError("unsupported JPEG: an interleaved scan of more "
+                             "than 10 blocks per MCU (libjpeg's limit)")
         return np.array(rows, np.int64), self.mcus_x, self.mcus_y
 
 
 def _parse_frame(marker: int, seg: bytes) -> _Frame:
     if marker in _SOF_NAMES:
         raise ValueError(f"unsupported JPEG: {_SOF_NAMES[marker]}; the port "
-                         "reads sequential and progressive Huffman JPEG "
-                         "only")
+                         "reads sequential and progressive DCT JPEG, "
+                         "Huffman or arithmetic-coded, and Huffman-coded "
+                         "lossless JPEG, as PIL does")
     precision = seg[0]
     height, width = int.from_bytes(seg[1:3], "big"), int.from_bytes(
         seg[3:5], "big")
     ncomp = seg[5]
     if precision != 8:
         raise ValueError(f"unsupported JPEG: {precision}-bit samples")
-    if ncomp == 4:
-        raise ValueError("unsupported JPEG: 4 components (CMYK/YCCK)")
-    if ncomp not in (1, 3):
+    if ncomp not in (1, 3, 4):
         raise ValueError(f"unsupported JPEG: {ncomp} components")
     if height == 0 or width == 0:
         raise ValueError("unsupported JPEG: empty frame or height given by "
                          "a DNL marker")
+    if len(seg) < 6 + 3 * ncomp:
+        raise ValueError("corrupt JPEG: bad frame header")
     comps = []
     for i in range(ncomp):
         cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
+        if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
+            raise ValueError(f"corrupt JPEG: component {cid} has sampling "
+                             f"factors {hv >> 4}x{hv & 15}")
         comps.append(_Component(cid, hv >> 4, hv & 15, tq))
-    frame = _Frame(height, width, comps, progressive=marker == 0xC2)
+    frame = _Frame(height, width, comps,
+                   progressive=marker in (0xC2, 0xCA),
+                   arithmetic=marker in (0xC9, 0xCA), lossless=marker == 0xC3)
     for c in comps:
-        ratio = (frame.hmax / c.hs, frame.vmax / c.vs) if ncomp > 1 else (1, 1)
-        if ratio not in ((1, 1), (2, 1), (2, 2)):
+        if ncomp > 1 and (frame.hmax % c.hs or frame.vmax % c.vs):
             raise ValueError(
                 f"unsupported JPEG: component {c.cid} sampled {c.hs}x{c.vs} "
-                f"in a {frame.hmax}x{frame.vmax} frame; the port reads 1x1, "
-                "2x1 and 2x2 subsampling")
+                f"in a {frame.hmax}x{frame.vmax} frame (fractional "
+                "sampling, which libjpeg does not implement either)")
     return frame
 
 
@@ -213,6 +262,9 @@ class _Parsed:
         self.jfif = False
         self.adobe_transform: int | None = None
         self.coefs: np.ndarray | None = None
+        # the DAC conditioning: DC tables' U << 4 | L (default L = 0,
+        # U = 1), then AC tables' K (default 5)
+        self.conditioning = np.array([0x10] * 16 + [5] * 16, np.uint8)
 
 
 def _parse(blob: bytes, header_only: bool = False) -> _Parsed:
@@ -252,7 +304,13 @@ def _parse(blob: bytes, header_only: bool = False) -> _Parsed:
                 return out
             out.coefs = np.zeros(out.frame.n_coefs, np.int16)
         elif marker == 0xCC:
-            raise ValueError("unsupported JPEG: arithmetic coding (DAC)")
+            if len(seg) % 2:
+                raise ValueError("corrupt JPEG: bad DAC segment")
+            for index, value in zip(seg[0::2], seg[1::2]):
+                if index >= 32 or (index < 16 and value & 15 > value >> 4):
+                    raise ValueError("corrupt JPEG: bad arithmetic "
+                                     "conditioning in a DAC segment")
+                out.conditioning[index] = value
         elif marker == 0xC4:
             i = 0
             while i < len(seg):
@@ -300,21 +358,32 @@ def _parse(blob: bytes, header_only: bool = False) -> _Parsed:
                 tabs.append((t >> 4, t & 15))
             for c in comps:
                 c.seen = True
-                if c.qt is None:  # libjpeg's latch_quant_tables
+                if c.qt is None and not frame.lossless:  # latch_quant_tables
                     if c.tq not in out.qt:
                         raise ValueError(
                             "corrupt JPEG: a component names a quantisation "
                             "table that was not defined")
                     c.qt = out.qt[c.tq]
             layout, mx, my = frame.layout(comps, tabs)
+            band = (_progression(comps, *seg[1 + 2 * ns:4 + 2 * ns])
+                    if frame.progressive else (0, 63, 0, 0))
             args = (_ptr(data[pos:]), n - pos, ns, _ptr(layout), mx, my,
-                    restart, _ptr(tables))
-            if frame.progressive:
-                band = _progression(comps, *seg[1 + 2 * ns:4 + 2 * ns])
+                    restart)
+            if frame.lossless:
+                _lossless_scan(comps, mx, my, restart,
+                               *seg[1 + 2 * ns:4 + 2 * ns])
+                used = _load().jpeg_decode_scan_lossless(
+                    *args, _ptr(tables), _ptr(out.coefs))
+            elif frame.arithmetic:
+                used = _load().jpeg_decode_scan_arith(
+                    *args, _ptr(out.conditioning), int(frame.progressive),
+                    *band, _ptr(out.coefs))
+            elif frame.progressive:
                 used = _load().jpeg_decode_scan_progressive(
-                    *args, *band, _ptr(out.coefs))
+                    *args, _ptr(tables), *band, _ptr(out.coefs))
             else:
-                used = _load().jpeg_decode_scan(*args, _ptr(out.coefs))
+                used = _load().jpeg_decode_scan(*args, _ptr(tables),
+                                                _ptr(out.coefs))
             if used < 0:
                 raise ValueError(f"corrupt JPEG: {_ERRORS.get(used, used)}")
             pos += used
@@ -323,8 +392,6 @@ def _parse(blob: bytes, header_only: bool = False) -> _Parsed:
         raise ValueError("corrupt JPEG: no frame header")
     if not all(c.seen for c in out.frame.comps):
         raise ValueError("corrupt JPEG: a component has no scan")
-    if out.frame.progressive:
-        _refuse_smoothing(out.frame.comps)
     return out
 
 
@@ -348,27 +415,136 @@ def _progression(comps: list, ss: int, se: int, a: int) -> tuple:
     return ss, se, ah, al
 
 
-def _refuse_smoothing(comps: list) -> None:
-    """Raise where libjpeg-turbo's ``smoothing_ok`` holds at the end of the
-    file: every component's table latched and nonzero at the first 10
-    zigzag positions, every DC at least partly known, and some component's
-    coefficients 1-9 never coded or short of their last bit. libjpeg then
-    estimates those coefficients from the neighbouring blocks' DC values,
-    a filter that differs between libjpeg versions; the port decodes the
-    coefficients as they are only."""
-    useful = None
+def _lossless_scan(comps: list, mcus_x: int, mcus_y: int, restart: int,
+                   ss: int, se: int, a: int) -> None:
+    """A lossless scan's predictor (Ss) and point transform (Al), checked
+    as libjpeg-turbo checks them, and per component the rows whose
+    prediction starts afresh: the first, and the first of each iMCU row
+    (``vs`` rows of the component) in which a restart marker falls, where
+    libjpeg-turbo's ``decompress_data`` restarts the undifferencing."""
+    ah, al = a >> 4, a & 15
+    if not 1 <= ss <= 7 or se or ah or al >= 8:
+        raise ValueError(f"corrupt JPEG: bad lossless parameters Ss={ss} "
+                         f"Se={se} Ah={ah} Al={al}")
+    if restart % mcus_x:
+        raise ValueError(f"unsupported JPEG: a lossless restart interval "
+                         f"({restart}) that is not a whole number of MCU "
+                         f"rows ({mcus_x} MCUs), which libjpeg refuses too")
+    for c in comps:
+        first = np.zeros(c.h, np.uint8)
+        first[0] = 1
+        if restart:
+            # the MCU rows that a marker starts, as rows of the component
+            m = np.arange(restart // mcus_x, mcus_y, restart // mcus_x)
+            rows = m * c.vs if len(comps) > 1 else m // c.vs * c.vs
+            first[rows[rows < c.h]] = 1
+        c.lossless = (ss, al, first)
+
+
+def _smoothing_ok(comps: list) -> bool:
+    """libjpeg-turbo's ``smoothing_ok`` at the end of a progressive file:
+    every component's table latched and nonzero at the first 10 zigzag
+    positions, every DC at least partly known, and some component's
+    coefficients 1-9 never coded or short of their last bit."""
+    useful = False
     for c in comps:
         if c.qt is None or not c.qt[ZIGZAG[:10]].all() or c.coef_bits[0] < 0:
-            return
-        if useful is None and (c.coef_bits[1:10] != 0).any():
-            useful = c
-    if useful is not None:
-        raise ValueError(
-            "unsupported JPEG: a progressive file that leaves component "
-            f"{useful.cid}'s coefficients 1-9 with bits never sent "
-            f"(bits known: {useful.coef_bits[1:10].tolist()}, -1 for none); "
-            "libjpeg decodes it with block smoothing, which the port does "
-            "not reproduce")
+            return False
+        useful = useful or bool((c.coef_bits[1:10] != 0).any())
+    return useful
+
+
+# Block smoothing's estimates of zigzag coefficients 1-9 from the DC values
+# of a 5 x 5 block neighbourhood (libjpeg-turbo 3.1.3's
+# ``decompress_smooth_data``): per coefficient its natural position and
+# the 5 x 5 weights, with DC interpolation (every one of 1-9 never coded;
+# the DC is then re-estimated too) and without (K.8 of T.81 on 5 x 5).
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+_W_INTERP = np.array([
+    [[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+     [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]],                     # 0,1
+    [[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0, 0, 0, 0, 0],
+     [1, -13, -38, -13, 1], [1, 3, 3, 3, 1]],                     # 1,0
+    [[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+     [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]],                           # 2,0
+    [[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0, 0, 0, 0, 0],
+     [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]],                         # 1,1
+    [[0, 0, 0, 0, 0], [0, 2, -5, 2, 0], [1, 7, -14, 7, 1],
+     [0, 2, -5, 2, 0], [0, 0, 0, 0, 0]],                          # 0,2
+    [[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, 2, 0, -2, 0],
+     [0, 1, 0, -1, 0], [0, 0, 0, 0, 0]],                          # 0,3
+    [[0, 0, 0, 0, 0], [0, 1, -3, 1, 0], [0, 0, 0, 0, 0],
+     [0, -1, 3, -1, 0], [0, 0, 0, 0, 0]],                         # 1,2
+    [[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, -3, 0, 3, 0],
+     [0, 1, 0, -1, 0], [0, 0, 0, 0, 0]],                          # 2,1
+    [[0, 0, 0, 0, 0], [0, 1, 2, 1, 0], [0, 0, 0, 0, 0],
+     [0, -1, -2, -1, 0], [0, 0, 0, 0, 0]]])                       # 3,0
+_W_PLAIN = np.zeros((5, 5, 5), np.int64)
+_W_PLAIN[0, 2] = [-7, 50, 0, -50, 7]                              # 0,1
+_W_PLAIN[1, :, 2] = [-7, 50, 0, -50, 7]                           # 1,0
+_W_PLAIN[2, :, 2] = [-1, 13, -24, 13, -1]                         # 2,0
+_W_PLAIN[3] = [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0, 0, 0, 0, 0],
+               [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]]             # 1,1
+_W_PLAIN[4, 2] = [-1, 13, -24, 13, -1]                            # 0,2
+_W_DC = np.array([[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+                  [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+                  [-2, -6, -8, -6, -2]])
+
+
+def _neighbour_rows(frame: _Frame, c: _Component) -> np.ndarray:
+    """(5, block rows) indices of the block rows two above to two below
+    each real block row of ``c``, as ``decompress_smooth_data`` takes
+    them: clamped at the image's edges, where its count of block rows is
+    the iMCU rows times the current iMCU row's count (fewer in a partial
+    last iMCU row, so its rows see less above them, and full rows near
+    the bottom can see the padding rows of the last MCU row)."""
+    v, total = c.vs, frame.mcus_y
+    height = _ceil_div(c.h, 8)
+    out = []
+    for y in range(total):
+        rows = v if y < total - 1 else (height % v or v)
+        for b in range(rows):
+            r, i, n = y * v + b, y * rows + b, rows * total
+            up = r - 1 if i > 0 else r
+            down = r + 1 if i < n - 1 else r
+            out.append((r - 2 if i > 1 else up, up, r, down,
+                        r + 2 if i < n - 2 else down))
+    return np.array(out, np.int64).T
+
+
+def _smooth(coef: np.ndarray, frame: _Frame, c: _Component) -> np.ndarray:
+    """libjpeg-turbo 3.1.3's block smoothing of one component's quantised
+    (bh, bw, 64) blocks (natural order) -> its real blocks with estimates
+    of the coefficients 1-9 that are zero and not known to their last
+    bit, each estimate kept below 1 << Al where Al bits are unknown."""
+    bits = c.coef_bits
+    interp = bool((bits[1:10] == -1).all())
+    rows = _neighbour_rows(frame, c)
+    width = _ceil_div(c.w, 8)
+    cols = np.clip(np.arange(width)[None] + np.arange(-2, 3)[:, None], 0,
+                   width - 1)
+    dc = coef[..., 0].astype(np.int64)
+    # the 5 x 5 DC values around each real block: (5, 5, rows, cols)
+    nb = dc[rows[:, None, :, None], cols[None, :, None, :]]
+    out = coef[:rows.shape[1], :width].astype(np.int64).copy()
+    q00 = int(c.qt[0])
+    weights = _W_INTERP if interp else _W_PLAIN
+    for k in range(9 if interp else 5):
+        al, pos = int(bits[k + 1]), _SMOOTH_POS[k]
+        if al == 0:
+            continue
+        q = int(c.qt[pos])
+        num = q00 * np.einsum("ij,ij...->...", weights[k], nb)
+        pred = ((q << 7) + np.abs(num)) // (q << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        pred = np.where(num < 0, -pred, pred)
+        out[..., pos] = np.where(out[..., pos] == 0, pred, out[..., pos])
+    if interp:
+        num = q00 * np.einsum("ij,ij...->...", _W_DC, nb)
+        pred = ((q00 << 7) + np.abs(num)) // (q00 << 8)
+        out[..., 0] = np.where(num < 0, -pred, pred)
+    return out
 
 
 # ------------------------------------------------------------------- decode
@@ -426,17 +602,26 @@ def _upsample_h2(x: np.ndarray, near: int, far: int, shift: int,
 
 def _upsample(plane: np.ndarray, rh: int, rv: int) -> np.ndarray:
     """A component plane (h, w) at 1/rh x 1/rv of the frame -> (rv h, rh w)
-    as libjpeg's default ("fancy") upsampling gives it. Planes at most 2
-    samples wide are replicated instead."""
-    if rh == 1:
+    as libjpeg-turbo's default ("fancy") upsampling gives it: triangle
+    filters for h2v1, h2v2 (planes wider than 2 samples) and h1v2 (any
+    width), plain replication for every other integral ratio."""
+    if rh == rv == 1:
         return plane
     x = plane.astype(np.int64)
-    if x.shape[1] <= 2:
+    if rh == 1 and rv == 2:
+        # h1v2: 3/4 of the nearer row and 1/4 of the further one, bias 1
+        # above and 2 below, the rows beyond the plane being copies of
+        # its first and last
+        xp = np.pad(x, ((1, 1), (0, 0)), mode="edge")
+        out = np.empty((2 * x.shape[0], x.shape[1]), np.int64)
+        out[0::2] = (3 * x + xp[:-2] + 1) >> 2
+        out[1::2] = (3 * x + xp[2:] + 2) >> 2
+        return out.astype(np.uint8)
+    if rh != 2 or rv > 2 or x.shape[1] <= 2:
         return np.repeat(np.repeat(plane, rv, axis=0), rh, axis=1)
     if rv == 1:
         return _upsample_h2(x, 1, 2, 2, 1).astype(np.uint8)
-    # h2v2: 3/4 of the nearer row and 1/4 of the further one, the rows
-    # beyond the plane being copies of its first and last
+    # h2v2: the h1v2 column sums, then the horizontal filter
     xp = np.pad(x, ((1, 1), (0, 0)), mode="edge")
     colsum = np.empty((2 * x.shape[0], x.shape[1]), np.int64)
     colsum[0::2] = 3 * x + xp[:-2]
@@ -455,23 +640,52 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """libjpeg's CMYK output as PIL 12.1 makes RGB of it: the samples
+    inverted (PIL reads every 4-component JPEG as Adobe's inverted CMYK,
+    raw mode "CMYK;I"), then Pillow's ``cmyk2rgb``: each of R, G, B is
+    nk - c nk / 255 with nk = 255 - k, the product rounded by its
+    ``MULDIV255``."""
+    inv = 255 - cmyk.astype(np.int64)
+    nk = 255 - inv[..., 3:]
+    tmp = inv[..., :3] * nk + 128
+    return np.clip(nk - (((tmp >> 8) + tmp) >> 8), 0, 255).astype(np.uint8)
+
+
 def decode_jpeg(blob: bytes) -> np.ndarray:
     """JPEG bytes -> uint8 (H, W) for a one-component file, (H, W, 3) RGB
-    for a three-component one, the pixels of libjpeg's default decode."""
+    for a three-component one, the pixels of libjpeg's default decode;
+    (H, W, 3) RGB for a four-component one, as PIL reads it and the JAX
+    package's ``load_image`` converts it."""
     parsed = _parse(blob)
     frame = parsed.frame
+    if frame.lossless:
+        return _decode_lossless(parsed)
+    smooth = frame.progressive and _smoothing_ok(frame.comps)
     planes = []
     for c in frame.comps:
         coef = parsed.coefs[c.offset:c.offset + c.bw * c.bh * 64]
-        coef = coef.reshape(c.bh, c.bw, 8, 8).astype(np.int64)
+        coef = coef.reshape(c.bh, c.bw, 64).astype(np.int64)
+        if smooth:
+            coef = _smooth(coef, frame, c)
+        coef = coef.reshape(coef.shape[:2] + (8, 8))
         px = _idct_blocks(coef * c.qt.reshape(8, 8))
-        plane = px.transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
+        plane = px.transpose(0, 2, 1, 3).reshape(-1, coef.shape[1] * 8)
         planes.append(plane[:c.h, :c.w])
     if len(planes) == 1:
         return np.ascontiguousarray(planes[0])
     full = [_upsample(p, frame.hmax // c.hs, frame.vmax // c.vs)
             [:frame.height, :frame.width]
             for p, c in zip(planes, frame.comps)]
+    if len(full) == 4:
+        # libjpeg's guess: an Adobe transform other than 0 means YCCK,
+        # which it turns into CMYK with the YCbCr tables (K as it is);
+        # else plain CMYK
+        if parsed.adobe_transform:
+            rgb = _ycc_to_rgb(*full[:3]).astype(np.int64)
+            full[:3] = [(255 - rgb[..., k]).astype(np.uint8)
+                        for k in range(3)]
+        return _cmyk_to_rgb(np.stack(full, axis=-1))
     # libjpeg's guess of the colour space: JFIF says YCbCr; else Adobe's
     # transform flag; else component ids R, G, B mean RGB
     ids = bytes(c.cid for c in frame.comps)
@@ -484,6 +698,35 @@ def decode_jpeg(blob: bytes) -> np.ndarray:
     if rgb:
         return np.ascontiguousarray(np.stack(full, axis=-1))
     return _ycc_to_rgb(*full)
+
+
+def _decode_lossless(parsed: _Parsed) -> np.ndarray:
+    """A lossless frame's samples, as libjpeg-turbo gives them: no colour
+    conversion (a file that would need one, YCbCr by its JFIF or Adobe
+    marker or YCCK, is refused there and here; three components are RGB
+    otherwise), components upsampled by replication."""
+    frame = parsed.frame
+    ncomp = len(frame.comps)
+    if (ncomp == 3 and (parsed.jfif or parsed.adobe_transform)) or (
+            ncomp == 4 and parsed.adobe_transform):
+        raise ValueError("unsupported JPEG: a lossless file in YCbCr or "
+                         "YCCK, whose colour conversion libjpeg does not "
+                         "do in lossless mode")
+    planes = []
+    for c in frame.comps:
+        predictor, pt, first = c.lossless
+        plane = np.empty((c.h, c.w), np.uint8)
+        _load().jpeg_undifference(
+            _ptr(parsed.coefs[c.offset:]), c.bw, c.h, c.w, predictor,
+            1 << (7 - pt), pt, _ptr(first), _ptr(plane))
+        planes.append(np.repeat(np.repeat(
+            plane, frame.vmax // c.vs, axis=0), frame.hmax // c.hs,
+            axis=1)[:frame.height, :frame.width])
+    if ncomp == 1:
+        return planes[0]
+    if ncomp == 4:
+        return _cmyk_to_rgb(np.stack(planes, axis=-1))
+    return np.ascontiguousarray(np.stack(planes, axis=-1))
 
 
 def jpeg_size(blob: bytes) -> tuple[int, int]:
