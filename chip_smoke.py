@@ -54,6 +54,16 @@ GPU) is what runs:
   port's baseline write of the same array; then the same mini with P1026
   as YCCK (2x2 Y and K) and then as h1v2 runs through ``benchmark.main``
   on both paths: every horizon and the AUC within 0.02 of JAX's;
+* WebP: every file of ``assets/examples/webp/``
+  (``scripts/make_webp_fixtures.py``: lossy at every filter, segment and
+  partition setting, lossless with every transform and palette size,
+  alpha, extended and animated files) decodes to the JAX package's pixels
+  (the committed digests) and ``image_size`` gives PIL's size; each
+  640x480 file is timed against the port's baseline JPEG write of the same
+  array at the same quality; then the same mini with P1026 as lossy and
+  then as lossless WebP (under its ``.jpg`` name) runs through
+  ``benchmark.main`` on both paths: the AUC within 0.02 of JAX's and at
+  most 1 horizon beyond 0.02 of JAX's;
 * the reference-shaped entry points (``em/compat.py``): ``renew_cnn_result``
   and ``run_em_single`` on bundled scene 0's LSD lines (K2 launched once,
   the horizon of the returned VPs within 0.02 of JAX's);
@@ -136,6 +146,7 @@ steps, ``launches_sharded`` the sharded serving runs' (all ranks),
 ``launches_bench`` the bench phase's (every loop, warm-up and stage pass),
 ``launches_progressive`` the progressive phase's two driver runs,
 ``launches_jpeg_forms`` the jpeg-forms phase's four driver runs,
+``launches_webp`` the webp phase's four driver runs,
 ``launches_tools`` the tools phase's (probes, paths, gate and profiles),
 ``launches_hd`` the HD gate's, ``launches_em_trajectory`` the
 em-trajectory phase's (the traced frames' own paths and K2 on JAX's
@@ -217,6 +228,14 @@ FORMS_REFERENCE = os.path.join(ROOT, "assets", "examples",
                                "jax_reference_jpeg_forms.npz")
 FORMS_DIR = os.path.join(ROOT, "assets", "examples", "jpeg_forms")
 FORMS_DRIVEN = {"ycck": "P1026_ycck", "h1v2": "P1026_h1v2"}
+# the webp phase: the fixtures of scripts/make_webp_fixtures.py (which also
+# makes the colour array of the timed colour file) and, per driven
+# photograph, the file that takes P1026's place in the same mini
+WEBP_REFERENCE = os.path.join(ROOT, "assets", "examples",
+                              "jax_reference_webp.npz")
+WEBP_DIR = os.path.join(ROOT, "assets", "examples", "webp")
+WEBP_SCRIPT = os.path.join(ROOT, "scripts", "make_webp_fixtures.py")
+WEBP_DRIVEN = {"lossy": "P1026_lossy", "lossless": "P1026_lossless"}
 # the bench phase: batches per loop, repeats, and how many of its 32
 # horizons may lie beyond HORIZON_TOL of JAX's (the synthetic protocol's
 # knife-edge allowance)
@@ -1010,6 +1029,99 @@ def progressive_phase(card: str, kernels_all, ccl_k, sph_k,
     return phase
 
 
+def median_ms(decode, blob: bytes) -> float:
+    """Median host ms of ``decode(blob)`` over PROG_DECODES calls after a
+    warm-up."""
+    decode(blob)
+    times = []
+    for _ in range(PROG_DECODES):
+        t0 = time.perf_counter()
+        decode(blob)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def drive_york_mini(what: str, root: str, driven: dict, blobs: dict, ref,
+                    card: str, kernels_all, ccl_k, sph_k, total: dict,
+                    phase: dict, check, tmp: str, max_far: int) -> None:
+    """The York Urban mini at ``root`` with P1026's file replaced by each
+    driven fixture's bytes (run prefix -> fixture; under the ``.jpg`` name
+    the adapter globs) through ``benchmark.main`` on both paths, against
+    the JAX package's runs in ``ref`` (``<prefix>_<run>_*``): the AUC
+    within AUC_TOL of JAX's and at most ``max_far`` horizons beyond
+    HORIZON_TOL. Adds each run's launches to ``phase``; K1 and K2 must
+    launch on the device path, K2 on the host path."""
+    import numpy as np
+    import torch
+
+    from vanishing_points_2017_tpu_torch import benchmark as bench
+    from vanishing_points_2017_tpu_torch import weights as W
+    from vanishing_points_2017_tpu_torch.data import datasets as dsets
+    from vanishing_points_2017_tpu_torch.data import io as dio
+    from vanishing_points_2017_tpu_torch.data.cache import StageCache
+    from vanishing_points_2017_tpu_torch.pipeline import PipelineConfig
+
+    cfg = PipelineConfig()
+    stage = "result_w" + W.weights_identity() + "_m" + W.mean_identity()
+    adapter, _ = dsets.DATASETS["york"]
+    for prefix, fixture in driven.items():
+        with open(os.path.join(root, "P1026", "P1026.jpg"), "wb") as fh:
+            fh.write(blobs[fixture])
+        records, start = adapter(root)
+        evaluated = records[start:]
+        for run, detect in PROG_RUNS.items():
+            key = f"{prefix}_{run}"
+            res_dir = os.path.join(tmp, "results", key)
+            cache = StageCache(os.path.join(res_dir, "york"),
+                               bench.cache_key(cfg, detect))
+            for rec in records[:start]:  # the skipped split
+                cache.save(rec.name, stage, hp1=np.zeros(3), hp2=np.zeros(3))
+            argv = ["--yud", "--dataset_dir", root, "--result_dir", res_dir,
+                    "--run_em", "--batch", str(len(evaluated))]
+            argv += ["--device_detect"] if detect else []
+            buf = io.StringIO()
+            reset(kernels_all)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = bench.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            for k in kernels_all:
+                phase[k.source] = phase.get(k.source, 0) + k.launches
+            count(kernels_all, total, f"{what} {key}",
+                  need=(ccl_k, sph_k) if detect else (sph_k,))
+            text = buf.getvalue().splitlines()
+            aucs = [float(ln.split()[-1]) for ln in text
+                    if ln.startswith("AUC:")]
+            n_err = sum(ln.startswith("max_error:") for ln in text)
+            check(rc == 0 and len(aucs) == 1 and n_err == len(evaluated),
+                  f"{what} {key}: exit {rc}, {n_err} max_error lines")
+            if not aucs:
+                log("\n".join(text[-20:]))
+                continue
+            errs = []
+            for i, rec in enumerate(evaluated):
+                check(str(ref[f"{key}_names"][i]) == rec.name,
+                      f"{what} {key}: record {i} is {rec.name}")
+                r = cache.load(rec.name, stage)
+                errs.append(dio.normalized_horizon_error(
+                    np.cross(r["hp1"].astype(np.float64),
+                             r["hp2"].astype(np.float64)),
+                    np.cross(ref[f"{key}_hp1"][i].astype(np.float64),
+                             ref[f"{key}_hp2"][i].astype(np.float64)),
+                    640, 480))
+            jax_auc = float(ref[f"auc_{key}"])
+            log(f"{what} {key}: AUC {aucs[0]:.5f} vs JAX {jax_auc:.5f}; "
+                f"horizons from JAX's {[round(float(e), 5) for e in errs]}; "
+                f"driver wall {wall_s:.1f} s for {len(records)} records "
+                f"({card})")
+            check(abs(aucs[0] - jax_auc) <= AUC_TOL,
+                  f"{what} {key}: AUC {aucs[0]} vs JAX {jax_auc}")
+            check(sum(not e <= HORIZON_TOL for e in errs) <= max_far,
+                  f"{what} {key}: horizons {errs}, more than {max_far} "
+                  f"beyond {HORIZON_TOL}")
+
+
 def jpeg_forms_phase(card: str, kernels_all, ccl_k, sph_k,
                      total: dict) -> dict:
     """The JPEG forms past 1x1 / 2x1 / 2x2 YCbCr and gray through the
@@ -1021,21 +1133,13 @@ def jpeg_forms_phase(card: str, kernels_all, ccl_k, sph_k,
     on the first that did not hold. Returns the phase's launches per
     kernel source."""
     import numpy as np
-    import torch
 
-    from vanishing_points_2017_tpu_torch import benchmark as bench
-    from vanishing_points_2017_tpu_torch import weights as W
-    from vanishing_points_2017_tpu_torch.data import datasets as dsets
     from vanishing_points_2017_tpu_torch.data import io as dio
     from vanishing_points_2017_tpu_torch.data import jpeg, minisets
-    from vanishing_points_2017_tpu_torch.data.cache import StageCache
-    from vanishing_points_2017_tpu_torch.pipeline import PipelineConfig
 
     failed: list = []
     check = checker(failed)
     ref = np.load(FORMS_REFERENCE)
-    cfg = PipelineConfig()
-    stage = "result_w" + W.weights_identity() + "_m" + W.mean_identity()
     phase: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "yud")
@@ -1073,22 +1177,14 @@ def jpeg_forms_phase(card: str, kernels_all, ccl_k, sph_k,
 
         # ---- host decode per form at 640x480, against the port's baseline
         # write of the same array (the mini's P1026) at the form's quality
-        def decode_ms(blob: bytes) -> float:
-            jpeg.decode_jpeg(blob)
-            times = []
-            for _ in range(PROG_DECODES):
-                t0 = time.perf_counter()
-                jpeg.decode_jpeg(blob)
-                times.append((time.perf_counter() - t0) * 1e3)
-            return statistics.median(times)
-
         baseline: dict = {}
         for name in (str(n) for n in ref["timed"]):
             quality = int(ref[f"quality_{name}"])
             if quality not in baseline:
                 base = jpeg.encode_jpeg(source, quality)
-                baseline[quality] = (len(base), decode_ms(base))
-            ms = decode_ms(blobs[name])
+                baseline[quality] = (len(base),
+                                     median_ms(jpeg.decode_jpeg, base))
+            ms = median_ms(jpeg.decode_jpeg, blobs[name])
             size, base_ms = baseline[quality]
             log(f"host decode 640x480 {name} ({ref[f'form_{name}']}, "
                 f"quality {quality}): {ms:.2f} ms vs baseline 4:2:0 "
@@ -1097,66 +1193,87 @@ def jpeg_forms_phase(card: str, kernels_all, ccl_k, sph_k,
                 f"({card})")
 
         # ---- the mini with P1026 in each driven form, both paths
-        adapter, _ = dsets.DATASETS["york"]
-        for prefix, fixture in FORMS_DRIVEN.items():
-            with open(photo, "wb") as fh:
-                fh.write(blobs[fixture])
-            records, start = adapter(root)
-            evaluated = records[start:]
-            for run, detect in PROG_RUNS.items():
-                key = f"{prefix}_{run}"
-                res_dir = os.path.join(tmp, "results", key)
-                cache = StageCache(os.path.join(res_dir, "york"),
-                                   bench.cache_key(cfg, detect))
-                for rec in records[:start]:  # the skipped split
-                    cache.save(rec.name, stage, hp1=np.zeros(3),
-                               hp2=np.zeros(3))
-                argv = ["--yud", "--dataset_dir", root, "--result_dir",
-                        res_dir, "--run_em", "--batch", str(len(evaluated))]
-                argv += ["--device_detect"] if detect else []
-                buf = io.StringIO()
-                reset(kernels_all)
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(buf):
-                    rc = bench.main(argv)
-                torch.cuda.synchronize()
-                wall_s = time.perf_counter() - t0
-                for k in kernels_all:
-                    phase[k.source] = phase.get(k.source, 0) + k.launches
-                count(kernels_all, total, f"jpeg-forms {key}",
-                      need=(ccl_k, sph_k) if detect else (sph_k,))
-                text = buf.getvalue().splitlines()
-                aucs = [float(ln.split()[-1]) for ln in text
-                        if ln.startswith("AUC:")]
-                n_err = sum(ln.startswith("max_error:") for ln in text)
-                check(rc == 0 and len(aucs) == 1 and n_err == len(evaluated),
-                      f"jpeg-forms {key}: exit {rc}, {n_err} max_error lines")
-                if not aucs:
-                    log("\n".join(text[-20:]))
-                    continue
-                errs = []
-                for i, rec in enumerate(evaluated):
-                    check(str(ref[f"{key}_names"][i]) == rec.name,
-                          f"jpeg-forms {key}: record {i} is {rec.name}")
-                    r = cache.load(rec.name, stage)
-                    errs.append(dio.normalized_horizon_error(
-                        np.cross(r["hp1"].astype(np.float64),
-                                 r["hp2"].astype(np.float64)),
-                        np.cross(ref[f"{key}_hp1"][i].astype(np.float64),
-                                 ref[f"{key}_hp2"][i].astype(np.float64)),
-                        640, 480))
-                jax_auc = float(ref[f"auc_{key}"])
-                log(f"jpeg-forms {key}: AUC {aucs[0]:.5f} vs JAX "
-                    f"{jax_auc:.5f}; horizons from JAX's "
-                    f"{[round(float(e), 5) for e in errs]}; driver wall "
-                    f"{wall_s:.1f} s for {len(records)} records ({card})")
-                check(abs(aucs[0] - jax_auc) <= AUC_TOL,
-                      f"jpeg-forms {key}: AUC {aucs[0]} vs JAX {jax_auc}")
-                check(all(e <= HORIZON_TOL for e in errs),
-                      f"jpeg-forms {key}: horizons {errs} beyond "
-                      f"{HORIZON_TOL}")
+        drive_york_mini("jpeg-forms", root, FORMS_DRIVEN, blobs, ref, card,
+                        kernels_all, ccl_k, sph_k, total, phase, check, tmp,
+                        max_far=0)
     if failed:
         raise AssertionError(f"jpeg-forms phase: {failed}")
+    return phase
+
+
+def webp_phase(card: str, kernels_all, ccl_k, sph_k, total: dict) -> dict:
+    """WebP files through the decoder and both serving paths, held against
+    ``assets/examples/jax_reference_webp.npz``: every fixture's pixels and
+    ``image_size`` (lossy, lossless, alpha, extended, animated), the decode
+    time of each 640x480 file against the port's baseline JPEG write of
+    the same array at the same quality, and the York Urban mini with P1026
+    as lossy and as lossless WebP. Every check runs and logs before the
+    phase fails on the first that did not hold. Returns the phase's
+    launches per kernel source."""
+    import importlib.util
+
+    import numpy as np
+
+    from vanishing_points_2017_tpu_torch.data import io as dio
+    from vanishing_points_2017_tpu_torch.data import jpeg, minisets, webp
+
+    # the colour array of the fixture script (numpy only; the script
+    # imports JAX and PIL only when it writes the fixtures)
+    spec = importlib.util.spec_from_file_location("make_webp_fixtures",
+                                                  WEBP_SCRIPT)
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+
+    failed: list = []
+    check = checker(failed)
+    ref = np.load(WEBP_REFERENCE)
+    phase: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "yud")
+        minisets.make_mini_yud(root, n_eval=len(PROG_PHOTOS))
+        source = dio.load_image(os.path.join(root, "P1026", "P1026.jpg"))
+        sources = {"P1026_lossy": source, "P1026_lossless": source,
+                   "P1026_colour": fixtures.colour_photo(source)}
+
+        # ---- every fixture against JAX's pixels and PIL's size
+        blobs = {}
+        for name in (str(n) for n in ref["files"]):
+            path = os.path.join(WEBP_DIR, f"{name}.webp")
+            with open(path, "rb") as fh:
+                blobs[name] = fh.read()
+            check(hashlib.sha256(blobs[name]).hexdigest()
+                  == str(ref[f"file_sha256_{name}"]),
+                  f"webp {name}: not the committed file")
+            px = dio.load_image(path)
+            shape = tuple(int(v) for v in ref[f"shape_{name}"])
+            same = (hashlib.sha256(np.ascontiguousarray(px).tobytes())
+                    .hexdigest() == str(ref[f"sha256_{name}"])
+                    and px.shape == shape)
+            log(f"webp {name} {px.shape} ({ref[f'form_{name}']}): pixels "
+                f"equal JAX's: {same}")
+            check(same, f"webp {name}: pixels differ from JAX's")
+            check(dio.image_size(path) == shape[:2],
+                  f"webp {name}: image_size")
+
+        # ---- host decode of each 640x480 file, against the port's
+        # baseline JPEG write of the same array at the same quality
+        for name in (str(n) for n in ref["timed"]):
+            quality = int(ref[f"quality_{name}"])
+            base = jpeg.encode_jpeg(sources[name], quality)
+            base_ms = median_ms(jpeg.decode_jpeg, base)
+            ms = median_ms(webp.decode_webp, blobs[name])
+            log(f"host decode 640x480 {name} ({ref[f'form_{name}']}): "
+                f"{ms:.2f} ms vs baseline JPEG 4:2:0 at quality {quality} "
+                f"{base_ms:.2f} ms per image (x{ms / base_ms:.2f}; median "
+                f"of {PROG_DECODES}; {len(blobs[name])} / {len(base)} "
+                f"bytes) ({card})")
+
+        # ---- the mini with P1026 as lossy and as lossless WebP, both paths
+        drive_york_mini("webp", root, WEBP_DRIVEN, blobs, ref, card,
+                        kernels_all, ccl_k, sph_k, total, phase, check, tmp,
+                        max_far=MINI_MAX_FAR)
+    if failed:
+        raise AssertionError(f"webp phase: {failed}")
     return phase
 
 
@@ -2696,6 +2813,12 @@ def main() -> int:
     per_forms = jpeg_forms_phase(card, kernels_all, ccl_k, sph_k, total)
     log(f"jpeg-forms phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- WebP: the decoder, then both paths on the York mini with P1026
+    # as lossy and as lossless WebP
+    t0 = time.perf_counter()
+    per_webp = webp_phase(card, kernels_all, ccl_k, sph_k, total)
+    log(f"webp phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- the reference-shaped entry points on scene 0's LSD lines
     compat_phase(card, kernels_all, sph_k, total, params, mean, bundles[0],
                  host_ref["host_hp1"][0], host_ref["host_hp2"][0])
@@ -2725,6 +2848,7 @@ def main() -> int:
              launches_bench=per_bench[ccl_k.source],
              launches_progressive=per_prog[ccl_k.source],
              launches_jpeg_forms=per_forms[ccl_k.source],
+             launches_webp=per_webp[ccl_k.source],
              launches_tools=per_tools[ccl_k.source],
              launches_hd=per_hd[ccl_k.source],
              launches_em_trajectory=per_em[ccl_k.source],
@@ -2744,6 +2868,7 @@ def main() -> int:
              launches_bench=per_bench[sph_k.source],
              launches_progressive=per_prog[sph_k.source],
              launches_jpeg_forms=per_forms[sph_k.source],
+             launches_webp=per_webp[sph_k.source],
              launches_tools=per_tools[sph_k.source],
              launches_hd=per_hd[sph_k.source],
              launches_em_trajectory=per_em[sph_k.source],

@@ -103,7 +103,7 @@ def test_load_image_reads_png_and_refuses_jpeg(tmp_path):
     np.testing.assert_array_equal(tio.load_image(str(tmp_path / "c.jpg")),
                                   jio.load_image(str(tmp_path / "c.jpg")))
     Image.fromarray(rgb).save(tmp_path / "a.bmp")
-    with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
+    with pytest.raises(ValueError, match="not a PNG, JPEG or WebP file"):
         tio.load_image(str(tmp_path / "a.bmp"))
 
 

@@ -195,13 +195,17 @@ def test_png_16bit_keeps_high_byte_and_clips_gray(tmp_path):
 
 
 def test_other_formats_and_broken_pngs_raise(tmp_path):
-    """BMP, TIFF, GIF and WebP stay refused; so do depths the standard does
-    not allow and a palette file without its palette."""
+    """BMP, TIFF and GIF stay refused, and WebP reads as the JAX package
+    reads it; depths the standard does not allow and a palette file
+    without its palette raise."""
     rgb = np.random.default_rng(0).integers(0, 256, (9, 7, 3), np.uint8)
-    for ext in ("bmp", "tiff", "gif", "webp"):
+    for ext in ("bmp", "tiff", "gif"):
         Image.fromarray(rgb).save(tmp_path / f"a.{ext}")
-        with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
+        with pytest.raises(ValueError, match="not a PNG, JPEG or WebP file"):
             tio.load_image(str(tmp_path / f"a.{ext}"))
+    Image.fromarray(rgb).save(tmp_path / "a.webp")
+    np.testing.assert_array_equal(tio.load_image(str(tmp_path / "a.webp")),
+                                  jio.load_image(str(tmp_path / "a.webp")))
     samples = np.zeros((2, 2, 3), np.int64)
     with pytest.raises(ValueError, match="bit depth 4, colour type 2"):
         tio.decode_png(write_png(samples[..., :1], 4, 2))

@@ -3,12 +3,14 @@
 The port does not use PIL, so :func:`load_image` decodes the file itself,
 by its signature, to the array the JAX package's ``load_image`` gets from
 PIL: PNG with ``zlib`` and numpy (every colour type and bit depth of the
-standard, palette included, Adam7-interlaced or not), and every JPEG
-that PIL 12.1.0 (libjpeg-turbo 3.1.3) opens through ``data/jpeg.py``
+standard, palette included, Adam7-interlaced or not), every JPEG that
+PIL 12.1.0 (libjpeg-turbo 3.1.3) opens through ``data/jpeg.py``
 (sequential, progressive, arithmetic-coded and 8-bit lossless; gray,
 YCbCr, RGB, CMYK and YCCK at any integral sampling; the datasets'
-format); other formats (BMP, TIFF, GIF, WebP, ...) raise. :func:`encode_png` writes
-8-bit grayscale and RGB PNGs.
+format), and every WebP file that PIL 12.1.0 (libwebp 1.6.0) opens
+through ``data/webp.py`` (lossy and lossless, with or without alpha,
+simple or extended, frame 0 of an animation); other formats (BMP, TIFF,
+GIF, ...) raise. :func:`encode_png` writes 8-bit grayscale and RGB PNGs.
 :func:`resize_max` reproduces Pillow's LANCZOS resize pixel for pixel. :func:`detect_lsd_lines`
 runs the host LSD (``lsd.py``) and normalizes its segments.
 ``rgb2gray`` and ``normalized_horizon_error`` are the JAX package's
@@ -190,19 +192,33 @@ def encode_png(img: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
+_FORMATS = "the PyTorch port reads PNG, JPEG and WebP"
+
+
+def _is_webp(blob: bytes) -> bool:
+    return blob[:4] == b"RIFF" and blob[8:12] == b"WEBP"
+
+
 def image_size(path: str) -> tuple[int, int]:
-    """(height, width) of a PNG or JPEG file (any frame header the
-    decoder reads, SOF0-3 and SOF9-10) from its header: the first 64 KiB
-    are read, and the rest only where a JPEG's frame header lies beyond
-    them (after a large embedded profile or thumbnail)."""
-    from . import jpeg
+    """(height, width) of a PNG, JPEG or WebP file from its header (for a
+    JPEG any frame header the decoder reads, SOF0-3 and SOF9-10; for a
+    WebP the VP8X canvas or the image's own header): the first 64 KiB are
+    read, and the rest only where a JPEG's frame header lies beyond them
+    (after a large embedded profile or thumbnail)."""
+    from . import jpeg, webp
 
     with open(path, "rb") as f:
         blob = f.read(1 << 16)
         if blob[:8] == _PNG_SIG:
             return png_size(blob)
+        if _is_webp(blob):
+            try:
+                return webp.webp_size(blob)
+            except ValueError as e:
+                raise ValueError(f"{path}: {e}") from None
         if blob[:2] != jpeg.JPEG_SIG:
-            raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+            raise ValueError(f"{path}: not a PNG, JPEG or WebP file; "
+                             f"{_FORMATS}")
         try:
             return jpeg.jpeg_size(blob)
         except ValueError as e:
@@ -213,24 +229,27 @@ def image_size(path: str) -> tuple[int, int]:
 
 
 def load_image(path: str) -> np.ndarray:
-    """PNG or JPEG file -> RGB (or grayscale) uint8 array, by the file's
-    signature, as the JAX package's ``load_image`` gets it from PIL: "L"
-    and "RGB" files as they are, every other mode through
+    """PNG, JPEG or WebP file -> RGB (or grayscale) uint8 array, by the
+    file's signature, as the JAX package's ``load_image`` gets it from PIL:
+    "L" and "RGB" files as they are, every other mode through
     ``convert("RGB")`` (alpha dropped, gray replicated, 1-bit gray 0 /
-    255, 16-bit gray clipped to 255, CMYK by Pillow's ``cmyk2rgb``). Any
-    other format raises."""
-    from . import jpeg
+    255, 16-bit gray clipped to 255, CMYK by Pillow's ``cmyk2rgb``; a
+    WebP file is always RGB, an animation's frame 0). Any other format
+    raises."""
+    from . import jpeg, webp
 
     with open(path, "rb") as f:
         blob = f.read()
-    if blob[:2] == jpeg.JPEG_SIG:
-        try:
-            return jpeg.decode_jpeg(blob)
-        except ValueError as e:
-            raise ValueError(f"{path}: {e}") from None
+    for sig, decode in ((blob[:2] == jpeg.JPEG_SIG, jpeg.decode_jpeg),
+                        (_is_webp(blob), webp.decode_webp)):
+        if sig:
+            try:
+                return decode(blob)
+            except ValueError as e:
+                raise ValueError(f"{path}: {e}") from None
     if blob[:8] != _PNG_SIG:
-        raise ValueError(f"{path}: neither a PNG nor a JPEG file; the "
-                         "PyTorch port reads these two formats")
+        raise ValueError(f"{path}: not a PNG, JPEG or WebP file; "
+                         f"{_FORMATS}")
     img, mode = png_image(blob)
     if mode == "L":
         return np.ascontiguousarray(img[..., 0])
