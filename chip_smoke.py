@@ -132,6 +132,12 @@ GPU) is what runs:
   2e-6 of the dense one); then one nccl rank serves the scenes. Ranks
   report their kernel launches back; their wall times are information
   only (ranks sharing a card say nothing about scaling).
+* the port's tracing, last: the b32 batch through ``device_pipeline_full``
+  inside ``utils.profiling.trace()``, every kernel, copy and set charged
+  to a layer span or to ``outside`` by its launch call, the EM's own count
+  of its host reads (``em.host_reads``) equal to the truth-value reads on
+  the card, outputs equal to the untraced call's; its numbers in a
+  ``tracing b32`` line and a ``{"tracing": ...}`` JSON line.
 
     python3 chip_smoke.py
 
@@ -2010,6 +2016,60 @@ def em_bodies(pass_fn) -> int:
     return n[0]
 
 
+def tracing_phase(pipe, images) -> dict:
+    """One batch through ``device_pipeline_full`` inside the port's trace
+    session (``utils/profiling.py``) on the card, held to three things:
+    every kernel, copy and set of the session is charged to a layer span
+    or to ``outside``; the EM's own count of its host reads equals
+    ``bench.host_reads``' count of the truth-value reads on the card over
+    the whole call; the outputs equal the untraced call's. -> the batch's
+    span, busy and idle ms per layer, EM trips, launches and host reads."""
+    import torch
+
+    from vanishing_points_2017_tpu_torch import bench
+    from vanishing_points_2017_tpu_torch.pipeline import device_pipeline_full
+    from vanishing_points_2017_tpu_torch.utils import profiling
+
+    def run():
+        return device_pipeline_full(images, pipe.model, pipe.mean, pipe.cfg)
+
+    plain = run()
+    torch.cuda.synchronize()
+    with bench.host_reads(images.device) as n, profiling.trace() as rec:
+        out = run()
+    faults = []
+    if len(rec.batches) != 1:
+        faults.append(f"{len(rec.batches)} vp.batch spans for one call")
+    b = rec.batches[0]
+    charged = sum(sum(r["launches"].values()) for r in rec.batches)
+    if not 0 < charged == rec.device_ops or rec.unlaunched:
+        faults.append(f"{charged} of {rec.device_ops} device ops charged, "
+                      f"{rec.unlaunched} without a launch call")
+    idle = sum(sum(r["idle_ms"].values()) for r in rec.batches)
+    if abs(idle - rec.idle_ms) > 0.01 * rec.idle_ms:
+        faults.append(f"idle {idle} ms attributed of {rec.idle_ms} ms")
+    reads = b["counters"].get("em.host_reads", 0)
+    if reads != n["n"] or not reads:
+        faults.append(f"em.host_reads {reads}, truth-value reads {n['n']}")
+    differ = [k for k in plain if not identical(plain[k], out[k])]
+    if differ:
+        faults.append(f"outputs differ with tracing on: {differ}")
+    if faults:
+        raise AssertionError("tracing: " + "; ".join(faults))
+    res = {"device_ops": rec.device_ops,
+           "window_ms": rec.window_ms, "idle_ms": rec.idle_ms,
+           "em_trips": b["spans"].get("vp.em.iteration", 0),
+           "em_launches": b["launches"].get("vp.em", 0),
+           "em_host_reads": reads}
+    for layer in profiling.LAYERS + (profiling.OUTSIDE,):
+        short = layer.split(".")[-1]
+        if layer != profiling.OUTSIDE:
+            res[f"{short}_span_ms"] = b["span_ms"].get(layer, 0.0)
+        res[f"{short}_busy_ms"] = b["busy_ms"].get(layer, 0.0)
+        res[f"{short}_idle_ms"] = b["idle_ms"].get(layer, 0.0)
+    return res
+
+
 def options_phase(card: str, pipe, kernels_all, total: dict, ld) -> dict:
     """The JAX package's other detector and EM configurations on the card:
     K1 at 2 and 16 passes bit-exact against its twin at B = 4 on four of
@@ -2835,6 +2895,16 @@ def main() -> int:
         dev, card, kernels_all, total, params, mean,
         {k: v.cpu().numpy() for k, v in out32.items()}, jax_ref)
     log(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the b32 batch under the port's trace session: every device op
+    # charged to a layer or outside, the EM's host reads counted by the
+    # program as the truth-value reads on the card, outputs unchanged.
+    # Last, so no later phase's profiler runs after a session (PERF.md §7)
+    traced = tracing_phase(pipe, imgs32)
+    log(f"tracing b{BATCH}: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in traced.items()))
+    log(json.dumps({"tracing": traced}))
 
     # no single PyTorch call computes either function: library_ms is null
     kernel_info = [

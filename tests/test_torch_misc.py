@@ -1,6 +1,6 @@
-"""The port's small modules on the CPU: ``utils/profiling.py`` against the
-JAX package's (tests/test_utils.py's cases through both), ``viz.py``,
-``config.py`` and the example driver's ``--show`` on a JPEG input."""
+"""The port's small modules on the CPU: ``utils/profiling.py``'s trace
+file and logger, ``viz.py``, ``config.py`` and the example driver's
+``--show`` on a JPEG input."""
 
 import builtins
 import contextlib
@@ -18,7 +18,6 @@ from vanishing_points_2017_tpu import config as jconfig
 from vanishing_points_2017_tpu import viz as jviz
 from vanishing_points_2017_tpu.data.datasets import render_scene_image
 from vanishing_points_2017_tpu.models import cnn as jcnn
-from vanishing_points_2017_tpu.utils import profiling as jprof
 from vanishing_points_2017_tpu_torch import config as tconfig
 from vanishing_points_2017_tpu_torch import example as texample
 from vanishing_points_2017_tpu_torch import pipeline as tpipe
@@ -32,67 +31,25 @@ from vanishing_points_2017_tpu_torch.weights import params_from_numpy
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("prof", [tprof, jprof], ids=["torch", "jax"])
-def test_stage_timer_accumulates(prof):
-    t = prof.StageTimer()
-    with t.span("a"):
-        pass
-    with t.span("a"):
-        pass
-    with t.span("b"):
-        pass
-    t.add("b", 0.25)
-    rep = t.report()
-    assert list(rep) == ["a", "b"]
-    assert rep["a"]["count"] == 2 and rep["b"]["count"] == 2
-    assert set(rep["a"]) == {"total_s", "count", "mean_s"}
-    assert rep["b"]["total_s"] >= 0.25
-    assert rep["b"]["mean_s"] == pytest.approx(rep["b"]["total_s"] / 2,
-                                               abs=1e-4)
-    assert t.pretty().startswith("stage timings:\n")
-    assert prof.StageTimer().pretty() == "no spans"
-
-
-def test_stage_timer_reports_like_jax():
-    """The same spans give the same report keys and the same pretty
-    layout in both packages."""
-    tt, tj = tprof.StageTimer(), jprof.StageTimer()
-    for t in (tt, tj):
-        t.add("lsd", 0.5)
-        t.add("lsd", 1.5)
-        t.add("device", 0.125)
-    assert tt.report() == tj.report()
-    assert tt.pretty() == tj.pretty()
-
-
-def test_stage_timer_block_on_takes_nested_cpu_tensors():
-    """``block_on`` walks tensors, dicts, lists and tuples; CPU tensors need
-    no wait, and a span that raises is still counted."""
-    t = tprof.StageTimer()
-    out = {"a": torch.zeros(2), "b": [torch.ones(1), (torch.ones(1), 3)]}
-    with t.span("stage", block_on=out):
-        pass
-    with pytest.raises(KeyError):
-        with t.span("stage", block_on=None):
-            raise KeyError("x")
-    assert t.report()["stage"]["count"] == 2
-    assert tprof._cuda_devices(out, set()) == set()
-
-
 def test_trace_noop_and_trace_file(tmp_path):
-    with tprof.trace(None):
+    """Without a directory a session writes nothing; with one it writes
+    a Chrome trace of the block's spans, and no ATen op."""
+    with tprof.trace(None) as rec:
         x = 1
     with tprof.trace(""):
         x += 1
     assert x == 2 and not list(tmp_path.iterdir())
+    assert rec.batches == [] and rec.counters == {}
     log_dir = tmp_path / "traces" / "run"
     with tprof.trace(str(log_dir)):
-        torch.ones(8, 8) @ torch.ones(8, 8)
+        with tprof.span("vp.cnn"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
     path = log_dir / "trace.json"
     assert path.is_file()
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
-    assert any("mm" in str(e.get("name", "")) for e in events)
+    assert any(e.get("name") == "vp.cnn" for e in events)
+    assert not any("mm" in str(e.get("name", "")) for e in events)
 
 
 def test_logger_singleton():

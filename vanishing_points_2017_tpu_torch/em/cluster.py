@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .reads import host_bool
+
 BIG = 1e12
 
 
@@ -29,7 +31,7 @@ def agglomerative_two(dist: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     pair_ok = active[:, :, None] & active[:, None, :] & ~eye
     d = torch.where(pair_ok, dist, BIG)
     num_clusters = torch.sum(active, dim=1)
-    while bool((num_clusters > 2).any()):
+    while host_bool((num_clusters > 2).any()):
         go = num_clusters > 2
         flat = torch.argmin(d.reshape(b, -1), dim=1)
         i, j = flat // n, flat % n  # merge j into i

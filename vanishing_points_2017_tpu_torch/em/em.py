@@ -8,7 +8,9 @@ The JAX ``lax.while_loop`` bodies become Python loops over batched state:
 every loop runs while ANY image still needs it, and an image whose own
 condition is false keeps its state unchanged — what a vmapped
 ``while_loop`` does. The loop conditions are read on the host, one
-device-to-host sync per iteration.
+device-to-host sync per iteration, each through ``reads.host_bool``,
+which counts it (``em.host_reads``) in a trace session; the call is the
+span ``vp.em`` and each loop body ``vp.em.iteration``.
 
 ``EMConfig.loop`` picks the JAX package's loop structure. ``"uniform"``
 (the default) runs one body per trip, with split and merge gated by
@@ -36,9 +38,11 @@ import torch
 
 from ..ops import lines as lineops
 from ..ops import probability as prob
+from ..utils import profiling
 from . import cluster as clust
 from . import init_vps
 from . import weights as wmod
+from .reads import host_bool
 
 LOG_S_THRESH = prob.LOG_S_FLOOR  # log(1e-200)
 SPLIT_MERGE_IT = 100  # reference hardcodes split_merge_it = 100
@@ -194,7 +198,7 @@ def _merge_vps(v, log_s, alive, thresh: float, go, ctx: _Ctx):
     slots = torch.arange(ms, device=v.device)[None]
     log_max = _f32log(MERGE_MAX_STDD)
     try_again = go & (torch.sum(alive, dim=1) > 1)
-    while bool(try_again.any()):
+    while host_bool(try_again.any()):
         ang = _pairwise_vp_angles(v, alive)
         flat = torch.argmin(ang.reshape(b, -1), dim=1)
         j, k = flat // ms, flat % ms
@@ -335,7 +339,7 @@ def _finalize(st: _State, ctx: _Ctx) -> EMResult:
 
     counts, cw, assoc3, dm3 = count_pass(alive)
     under = alive & (counts < cfg.num_min_lines)
-    while bool(under.any()):
+    while host_bool(under.any()):
         prune = under.any(dim=1)
         vidx = torch.argmax(under.to(torch.uint8), dim=1)  # lowest slot
         alive2 = alive & (slots != vidx[:, None])
@@ -409,63 +413,64 @@ def _iteration(st: _State, ctx: _Ctx, with_split_merge: bool = True
     variance update), the periodic merge when due, the buffer swap.
     ``with_split_merge=False`` leaves split and merge out (the phase
     loop's plain bodies), so the body reads nothing back to the host."""
-    cfg, l = ctx.cfg, ctx.l
-    i, v_cur, v_next, log_s, alive, done, empty = st
-    b = l.shape[0]
-    freq = cfg.split_merge_freq
-    empty_now = torch.sum(alive, dim=1) == 0
-    go = ~done & ~empty_now
-    phase = (torch.remainder(i, freq) == 0) & (i > 0)
-    vc, ls, al = v_cur, log_s, alive
+    with profiling.span("vp.em.iteration"):
+        cfg, l = ctx.cfg, ctx.l
+        i, v_cur, v_next, log_s, alive, done, empty = st
+        b = l.shape[0]
+        freq = cfg.split_merge_freq
+        empty_now = torch.sum(alive, dim=1) == 0
+        go = ~done & ~empty_now
+        phase = (torch.remainder(i, freq) == 0) & (i > 0)
+        vc, ls, al = v_cur, log_s, alive
 
-    # ---- split move (every split_merge_freq iterations, 0 < i < 100)
-    if cfg.do_split and with_split_merge:
-        split_due = go & phase & (i < SPLIT_MERGE_IT)
-        if bool(split_due.any()):
-            _, w_s = ctx.estep(vc, al, ls)
-            vc, ls, al = _split_best_vp(vc, ls, al, w_s, split_due, ctx)
+        # ---- split move (every split_merge_freq iterations, 0 < i < 100)
+        if cfg.do_split and with_split_merge:
+            split_due = go & phase & (i < SPLIT_MERGE_IT)
+            if host_bool(split_due.any()):
+                _, w_s = ctx.estep(vc, al, ls)
+                vc, ls, al = _split_best_vp(vc, ls, al, w_s, split_due, ctx)
 
-    # ---- E-step + M-step: weighted TLS refit + variance update
-    p, w = ctx.estep(vc, al, ls)
-    if cfg.do_iterations:
-        new_vps, vp_ok = wmod.calc_new_vanishing_point(l, w)
-        s_log_new = torch.clamp(_s_update_log(p.lvsq.transpose(1, 2),
-                                              p.p_vl),
-                                LOG_S_THRESH, ctx.log_max_stdd)
-        s_nan = torch.isnan(s_log_new)
-        v_next2 = torch.where((al & vp_ok)[..., None], new_vps, vc)
-        log_s2 = torch.where(al & vp_ok, s_log_new, ls)
-        err = _vp_change(vc, v_next2)
-        contributes = al & vp_ok & ~s_nan
-        max_err = torch.amax(torch.where(contributes, err, 0.0), dim=1)
-        removed = al & (~vp_ok | s_nan | (contributes & (err > 1.5)))
-        alive2 = al & ~removed
-    else:
-        v_next2, log_s2, alive2 = vc, ls, al
-        max_err = torch.zeros(b, dtype=torch.float32, device=l.device)
-    vn = _sel(go, v_next2, v_next)
-    ls = _sel(go, log_s2, ls)
-    al = _sel(go, alive2, al)
-    converged = ((max_err < cfg.final_convergence) | (i == cfg.num_iter - 1)
-                 | (not cfg.do_iterations))
+        # ---- E-step + M-step: weighted TLS refit + variance update
+        p, w = ctx.estep(vc, al, ls)
+        if cfg.do_iterations:
+            new_vps, vp_ok = wmod.calc_new_vanishing_point(l, w)
+            s_log_new = torch.clamp(_s_update_log(p.lvsq.transpose(1, 2),
+                                                  p.p_vl),
+                                    LOG_S_THRESH, ctx.log_max_stdd)
+            s_nan = torch.isnan(s_log_new)
+            v_next2 = torch.where((al & vp_ok)[..., None], new_vps, vc)
+            log_s2 = torch.where(al & vp_ok, s_log_new, ls)
+            err = _vp_change(vc, v_next2)
+            contributes = al & vp_ok & ~s_nan
+            max_err = torch.amax(torch.where(contributes, err, 0.0), dim=1)
+            removed = al & (~vp_ok | s_nan | (contributes & (err > 1.5)))
+            alive2 = al & ~removed
+        else:
+            v_next2, log_s2, alive2 = vc, ls, al
+            max_err = torch.zeros(b, dtype=torch.float32, device=l.device)
+        vn = _sel(go, v_next2, v_next)
+        ls = _sel(go, log_s2, ls)
+        al = _sel(go, alive2, al)
+        converged = ((max_err < cfg.final_convergence)
+                     | (i == cfg.num_iter - 1) | (not cfg.do_iterations))
 
-    # ---- periodic merge (only when not converged this iteration)
-    if cfg.do_merge and with_split_merge:
-        merge_due = (go & ~converged & phase
-                     & (i <= SPLIT_MERGE_IT + freq))
-        if bool(merge_due.any()):
-            vn, ls, al = _merge_vps(vn, ls, al, cfg.merge_thresh,
-                                    merge_due, ctx)
+        # ---- periodic merge (only when not converged this iteration)
+        if cfg.do_merge and with_split_merge:
+            merge_due = (go & ~converged & phase
+                         & (i <= SPLIT_MERGE_IT + freq))
+            if host_bool(merge_due.any()):
+                vn, ls, al = _merge_vps(vn, ls, al, cfg.merge_thresh,
+                                        merge_due, ctx)
 
-    # buffer swap for the next iteration; images already done keep
-    # their whole state, as under a vmapped while_loop
-    swap = go & ~converged
-    run = ~done
-    return _State(i=torch.where(swap, i + 1, i),
-                  v_cur=_sel(run, _sel(swap, vn, vc), v_cur),
-                  v_next=_sel(run, vn, v_next), log_s=_sel(run, ls, log_s),
-                  alive=_sel(run, al, alive), done=done | (go & converged)
-                  | empty_now, empty=empty | (run & empty_now))
+        # buffer swap for the next iteration; images already done keep
+        # their whole state, as under a vmapped while_loop
+        swap = go & ~converged
+        run = ~done
+        return _State(i=torch.where(swap, i + 1, i),
+                      v_cur=_sel(run, _sel(swap, vn, vc), v_cur),
+                      v_next=_sel(run, vn, v_next), log_s=_sel(run, ls, log_s),
+                      alive=_sel(run, al, alive), done=done | (go & converged)
+                      | empty_now, empty=empty | (run & empty_now))
 
 
 def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
@@ -477,10 +482,12 @@ def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
     l (B, N, 3) homogeneous lines (row-normalized here), lp (B, N, 4)
     segments, cnn_response (B, 20, 20) sigmoid grids, sphere_image
     (B, S, S) in Agg orientation, lmask (B, N) validity."""
-    st, ctx = _setup(l, lp, cnn_response, sphere_image, lmask, cfg)
-    plain = max(cfg.split_merge_freq - 1, 0) if cfg.loop == "phase" else 0
-    while not bool(st.done.all()):
-        st = _iteration(st, ctx)
-        for _ in range(plain):
-            st = _iteration(st, ctx, with_split_merge=False)
-    return _finalize(st, ctx)
+    with profiling.span("vp.em"):
+        st, ctx = _setup(l, lp, cnn_response, sphere_image, lmask, cfg)
+        plain = max(cfg.split_merge_freq - 1, 0) if cfg.loop == "phase" \
+            else 0
+        while not host_bool(st.done.all()):
+            st = _iteration(st, ctx)
+            for _ in range(plain):
+                st = _iteration(st, ctx, with_split_merge=False)
+        return _finalize(st, ctx)

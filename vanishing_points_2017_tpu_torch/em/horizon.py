@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.select import topk_stable
+from ..utils import profiling
 
 
 def num_combo3(n: int) -> int:
@@ -167,41 +168,45 @@ def calculate_horizon_and_ortho_vp(vps: torch.Tensor, counts: torch.Tensor,
     """Returns (hP1, hP2, zVP, hVP1, hVP2, best triplet slot indices), each
     with a leading batch dimension. vps (B, M, 3) unit VPs, counts (B, M),
     alive (B, M). hP1/hP2 are the horizon's intersections with x = +-1."""
-    t = _score_triplets(vps, counts, alive, maxbest, theta_vmin, theta_z,
-                        pos_gate_ideal_tol)
-    b = vps.shape[0]
-    bi = torch.arange(b, device=vps.device)
-    best = torch.argmax(t["score"], dim=1)  # first max
+    with profiling.span("vp.horizon"):
+        t = _score_triplets(vps, counts, alive, maxbest, theta_vmin, theta_z,
+                            pos_gate_ideal_tol)
+        b = vps.shape[0]
+        bi = torch.arange(b, device=vps.device)
+        best = torch.argmax(t["score"], dim=1)  # first max
 
-    alive_order = torch.argsort((~alive).to(torch.uint8), dim=1, stable=True)
-    v_a0 = vps[bi, alive_order[:, 0]]
-    v_a1 = vps[bi, alive_order[:, 1]]
-    e010 = _vec([0.0, 1.0, 0.0], vps).expand(b, 3)
-    hlin_default = torch.linalg.cross(_vec([0.0, 0.0, 1.0], vps),
-                                      _vec([1.0, 0.0, 1.0], vps)).expand(b, 3)
-    combo_ge3 = torch.gather(t["best_vps"], 1, t["tri"][best])
-    zeros3 = torch.zeros((b, 3), dtype=combo_ge3.dtype, device=vps.device)
-    outs = [
-        (hlin_default, e010, _vec([-1.0, 0.0, 0.0], vps).expand(b, 3),
-         _vec([1.0, 0.0, 0.0], vps).expand(b, 3), zeros3),
-        (hlin_default, e010, v_a0, v_a0, zeros3),
-        (torch.linalg.cross(v_a0, v_a1), e010, v_a0, v_a1,
-         torch.tensor([0, 1, 0], device=vps.device).expand(b, 3)),
-        (t["hlin"][bi, best], t["z_vp"][bi, best], t["h_vp1"][bi, best],
-         t["h_vp2"][bi, best], combo_ge3),
-    ]
-    case = torch.clamp(t["num_best"], 0, 3)[:, None]
-    sel = []
-    for k in range(5):
-        o = outs[3][k]
-        for c in (2, 1, 0):
-            o = torch.where(case == c, outs[c][k], o)
-        sel.append(o)
-    hlin_f, z_vp_f, h_vp1_f, h_vp2_f, combo_f = sel
-    hp1 = torch.linalg.cross(hlin_f, _vec([1.0, 0.0, 1.0], vps).expand(b, 3))
-    hp2 = torch.linalg.cross(hlin_f, _vec([-1.0, 0.0, 1.0], vps).expand(b, 3))
-    return (hp1 / hp1[:, 2:3], hp2 / hp2[:, 2:3], z_vp_f, h_vp1_f, h_vp2_f,
-            combo_f)
+        alive_order = torch.argsort((~alive).to(torch.uint8), dim=1,
+                                    stable=True)
+        v_a0 = vps[bi, alive_order[:, 0]]
+        v_a1 = vps[bi, alive_order[:, 1]]
+        e010 = _vec([0.0, 1.0, 0.0], vps).expand(b, 3)
+        hlin_default = torch.linalg.cross(
+            _vec([0.0, 0.0, 1.0], vps), _vec([1.0, 0.0, 1.0], vps)).expand(b, 3)
+        combo_ge3 = torch.gather(t["best_vps"], 1, t["tri"][best])
+        zeros3 = torch.zeros((b, 3), dtype=combo_ge3.dtype, device=vps.device)
+        outs = [
+            (hlin_default, e010, _vec([-1.0, 0.0, 0.0], vps).expand(b, 3),
+             _vec([1.0, 0.0, 0.0], vps).expand(b, 3), zeros3),
+            (hlin_default, e010, v_a0, v_a0, zeros3),
+            (torch.linalg.cross(v_a0, v_a1), e010, v_a0, v_a1,
+             torch.tensor([0, 1, 0], device=vps.device).expand(b, 3)),
+            (t["hlin"][bi, best], t["z_vp"][bi, best], t["h_vp1"][bi, best],
+             t["h_vp2"][bi, best], combo_ge3),
+        ]
+        case = torch.clamp(t["num_best"], 0, 3)[:, None]
+        sel = []
+        for k in range(5):
+            o = outs[3][k]
+            for c in (2, 1, 0):
+                o = torch.where(case == c, outs[c][k], o)
+            sel.append(o)
+        hlin_f, z_vp_f, h_vp1_f, h_vp2_f, combo_f = sel
+        hp1 = torch.linalg.cross(hlin_f,
+                                 _vec([1.0, 0.0, 1.0], vps).expand(b, 3))
+        hp2 = torch.linalg.cross(hlin_f,
+                                 _vec([-1.0, 0.0, 1.0], vps).expand(b, 3))
+        return (hp1 / hp1[:, 2:3], hp2 / hp2[:, 2:3], z_vp_f, h_vp1_f, h_vp2_f,
+                combo_f)
 
 
 def triplet_score_margin(vps: torch.Tensor, counts: torch.Tensor,

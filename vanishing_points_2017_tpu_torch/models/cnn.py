@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..batching import in_chunks
+from ..utils import profiling
 
 GRID = 20
 INPUT_SIZE = 500
@@ -229,7 +230,8 @@ class VPNet(nn.Module):
         The network runs on fixed chunks of ``batching.default_chunk``
         images (32 on a GPU), so an image's grid is bit-identical at any
         batch size and position."""
-        return in_chunks(self.forward_unchunked, [x])
+        with profiling.span("vp.cnn"):
+            return in_chunks(self.forward_unchunked, [x])
 
 
 def preprocess(sphere_images: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import profiling
 from .select import topk_stable
 
 QUANT = 2.0
@@ -199,12 +200,13 @@ def connected_components_cuda(packed: torch.Tensor,
 def connected_components(packed: torch.Tensor, passes: int = CCL_PASSES) -> torch.Tensor:
     """Raster CCL on packed edge bits: the kernel for a CUDA tensor, the
     plain twin for a CPU tensor."""
-    if packed.is_cuda:
-        return connected_components_cuda(packed.contiguous(), passes)
-    if packed.device.type != "cpu":
-        raise ValueError(f"connected_components: unsupported device "
-                         f"{packed.device}")
-    return connected_components_ref(packed, passes)
+    with profiling.span("vp.detector.ccl"):
+        if packed.is_cuda:
+            return connected_components_cuda(packed.contiguous(), passes)
+        if packed.device.type != "cpu":
+            raise ValueError(f"connected_components: unsupported device "
+                             f"{packed.device}")
+        return connected_components_ref(packed, passes)
 
 
 def ccl_fixpoint_residual(packed: torch.Tensor,
@@ -437,54 +439,57 @@ def detect_segments_device(images: torch.Tensor, max_segments: int = 512,
     JAX function's low-level default, or ``"global"``, the pipeline's),
     ``runs_per_row``, ``max_records``, ``global_prefilter`` and
     ``topk_impl``: the run-record selection of :func:`_select_runs`."""
-    if images.dim() != 3:
-        raise ValueError(f"detect_segments_device: expected (B, H, W), got "
-                         f"{tuple(images.shape)}")
-    b, h, w = images.shape
-    hi, wi = h - 1, w - 1
-    npix = hi * wi
-    mag, active, ux, uy = gradient_front(images, tol_deg, blur_sigma)
-    packed = pack_edge_masks(active, ux, uy, math.cos(
-        pair_tol_factor * math.radians(tol_deg)))
-    root = connected_components(packed, ccl_passes)
-    poison = 0.0
-    if check_fixpoint:
-        resid = ccl_fixpoint_residual(packed, root)
-        poison = torch.where(resid > 0, math.nan, 0.0)[:, None, None]
+    with profiling.span("vp.detector"):
+        if images.dim() != 3:
+            raise ValueError(f"detect_segments_device: expected (B, H, W), "
+                             f"got {tuple(images.shape)}")
+        b, h, w = images.shape
+        hi, wi = h - 1, w - 1
+        npix = hi * wi
+        mag, active, ux, uy = gradient_front(images, tol_deg, blur_sigma)
+        packed = pack_edge_masks(active, ux, uy, math.cos(
+            pair_tol_factor * math.radians(tol_deg)))
+        root = connected_components(packed, ccl_passes)
+        poison = 0.0
+        if check_fixpoint:
+            resid = ccl_fixpoint_residual(packed, root)
+            poison = torch.where(resid > 0, math.nan, 0.0)[:, None, None]
 
-    s = max(h, w) / 2.0
-    wgt = torch.where(active, mag / 255.0, 0.0)
-    st = _component_stats(root, wgt.reshape(b, -1), max_segments, (hi, wi),
-                          (float(w), float(h), s), runs_per_row=runs_per_row,
-                          selection=selection, max_records=max_records,
-                          global_prefilter=global_prefilter,
-                          topk_impl=topk_impl)
-    s_cnt, cx, cy = st["cnt"], st["cx"], st["cy"]
-    ddx, ddy = st["ddx"], st["ddy"]
-    tmin, tmax = st["tmin"], st["tmax"]
+        s = max(h, w) / 2.0
+        wgt = torch.where(active, mag / 255.0, 0.0)
+        st = _component_stats(root, wgt.reshape(b, -1), max_segments, (hi, wi),
+                              (float(w), float(h), s),
+                              runs_per_row=runs_per_row,
+                              selection=selection, max_records=max_records,
+                              global_prefilter=global_prefilter,
+                              topk_impl=topk_impl)
+        s_cnt, cx, cy = st["cnt"], st["cx"], st["cy"]
+        ddx, ddy = st["ddx"], st["ddy"]
+        tmin, tmax = st["tmin"], st["tmax"]
 
-    span = torch.clamp(tmax - tmin, min=0.0)
-    span_px = span * s
-    width_px = torch.sqrt(12.0 * st["lam_min"]) * s
+        span = torch.clamp(tmax - tmin, min=0.0)
+        span_px = span * s
+        width_px = torch.sqrt(12.0 * st["lam_min"]) * s
 
-    # ---- NFA-style validation (Hoeffding bound on LSD's binomial test)
-    p_align = tol_deg / 180.0
-    area = span_px * torch.clamp(width_px, min=1.0)
-    dens = torch.clamp(s_cnt / torch.clamp(area, min=1.0), 1e-6, 1.0 - 1e-6)
-    kl = (dens * torch.log(dens / p_align)
-          + (1.0 - dens) * torch.log((1.0 - dens) / (1.0 - p_align)))
-    log10_nfa = 2.5 * math.log10(npix) - area * kl / math.log(10.0)
-    meaningful = (dens > p_align) & (log10_nfa < 0.0)
-    if min_density > 0.0:
-        meaningful = meaningful & (dens >= min_density)
-    valid = (st["valid"] & torch.isfinite(span) & meaningful
-             & (s_cnt >= min_count) & (span_px >= min_len_px))
+        # ---- NFA-style validation (Hoeffding bound on LSD's binomial test)
+        p_align = tol_deg / 180.0
+        area = span_px * torch.clamp(width_px, min=1.0)
+        dens = torch.clamp(s_cnt / torch.clamp(area, min=1.0), 1e-6,
+                           1.0 - 1e-6)
+        kl = (dens * torch.log(dens / p_align)
+              + (1.0 - dens) * torch.log((1.0 - dens) / (1.0 - p_align)))
+        log10_nfa = 2.5 * math.log10(npix) - area * kl / math.log(10.0)
+        meaningful = (dens > p_align) & (log10_nfa < 0.0)
+        if min_density > 0.0:
+            meaningful = meaningful & (dens >= min_density)
+        valid = (st["valid"] & torch.isfinite(span) & meaningful
+                 & (s_cnt >= min_count) & (span_px >= min_len_px))
 
-    t_c = cx * ddx + cy * ddy
-    seg = torch.stack([cx + (tmin - t_c) * ddx, cy + (tmin - t_c) * ddy,
-                       cx + (tmax - t_c) * ddx, cy + (tmax - t_c) * ddy],
-                      dim=-1)
-    seg = torch.where(valid[..., None], seg + poison, 0.0)
-    order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
-    return (torch.gather(seg, 1, order[..., None].expand_as(seg)),
-            torch.gather(valid, 1, order))
+        t_c = cx * ddx + cy * ddy
+        seg = torch.stack([cx + (tmin - t_c) * ddx, cy + (tmin - t_c) * ddy,
+                           cx + (tmax - t_c) * ddx, cy + (tmax - t_c) * ddy],
+                          dim=-1)
+        seg = torch.where(valid[..., None], seg + poison, 0.0)
+        order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+        return (torch.gather(seg, 1, order[..., None].expand_as(seg)),
+                torch.gather(valid, 1, order))

@@ -23,6 +23,7 @@ import math
 import torch
 
 from .. import kernels
+from ..utils import profiling
 
 DEFAULT_LINEWIDTH_PX = 100.0 / 72.0
 LINE_CHUNK = 8
@@ -131,8 +132,10 @@ def sphere_image_uint8(l: torch.Tensor, lmask: torch.Tensor, size: int = 500,
                        alpha: float = 0.1,
                        linewidth: float = DEFAULT_LINEWIDTH_PX) -> torch.Tensor:
     """uint8 sphere images floor(img * 255), the CNN-input contract."""
-    img = sphere_render(l, lmask, size=size, alpha=alpha, linewidth=linewidth)
-    return torch.floor(img * 255.0).to(torch.uint8)
+    with profiling.span("vp.render"):
+        img = sphere_render(l, lmask, size=size, alpha=alpha,
+                            linewidth=linewidth)
+        return torch.floor(img * 255.0).to(torch.uint8)
 
 
 def save_sphere_image(l: torch.Tensor, lmask: torch.Tensor, filename: str,

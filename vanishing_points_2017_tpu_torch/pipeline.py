@@ -9,7 +9,9 @@ line bucket that holds them, and sends the padded lines through
 :func:`device_pipeline_full` is the zero-host-round-trip path: a batch of
 uint8 grayscale images goes through the on-device detector and the same
 chain without leaving the device (the EM's loop conditions are the only
-device-to-host reads).
+device-to-host reads). Each entry call is one ``vp.batch`` span
+(``utils/profiling.py``): the root of its layers' spans and counters
+inside a trace session.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .models import cnn as cnn_mod
 from .ops import lines as lineops
 from .ops import sphere as sphere_mod
 from .ops.lines_device import detect_segments_device
+from .utils import profiling
 from .weights import params_from_numpy
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -175,30 +178,31 @@ def device_pipeline_batch(l: torch.Tensor, lp: torch.Tensor,
                           mean: torch.Tensor, cfg: PipelineConfig) -> dict:
     """Render -> CNN -> EM -> horizon on padded lines: l (B, N, 3),
     lp (B, N, 4), lmask (B, N) bool. Returns a dict of (B, ...) tensors."""
-    img_u8 = sphere_mod.sphere_image_uint8(l, lmask, size=cfg.sphere_size)
-    pred = model(cnn_mod.preprocess(img_u8, mean))
-    sphere_f32 = img_u8.to(torch.float32)
-    horizon_args = dict(maxbest=cfg.maxbest, theta_vmin=cfg.theta_vmin,
-                        pos_gate_ideal_tol=cfg.horizon_pos_gate_tol)
-    extra: dict = {}
-    if cfg.horizon_consensus > 1:
-        em, hz, extra = consensus_em_horizon(
-            l, lp, pred, sphere_f32, lmask, cfg.em,
-            k=cfg.horizon_consensus, seed=cfg.consensus_seed,
-            mode=cfg.consensus_mode, guard=cfg.consensus_guard,
-            **horizon_args)
-    else:
-        em, hz = em_and_horizon(l, lp, pred, sphere_f32, lmask, cfg.em,
-                                **horizon_args)
-    hp1, hp2, z_vp, h_vp1, h_vp2, combo = hz
-    return extra | {
-        "sphere_image": img_u8, "cnn_prediction": pred,
-        "vp": em.vp, "alive": em.alive, "counts": em.counts,
-        "counts_weighted": em.counts_weighted, "vp_assoc": em.vp_assoc,
-        "iterations": em.iterations, "em_valid": em.valid,
-        "hp1": hp1, "hp2": hp2, "zenith_vp": z_vp,
-        "horizon_vp1": h_vp1, "horizon_vp2": h_vp2, "best_combo": combo,
-    }
+    with profiling.batch():
+        img_u8 = sphere_mod.sphere_image_uint8(l, lmask, size=cfg.sphere_size)
+        pred = model(cnn_mod.preprocess(img_u8, mean))
+        sphere_f32 = img_u8.to(torch.float32)
+        horizon_args = dict(maxbest=cfg.maxbest, theta_vmin=cfg.theta_vmin,
+                            pos_gate_ideal_tol=cfg.horizon_pos_gate_tol)
+        extra: dict = {}
+        if cfg.horizon_consensus > 1:
+            em, hz, extra = consensus_em_horizon(
+                l, lp, pred, sphere_f32, lmask, cfg.em,
+                k=cfg.horizon_consensus, seed=cfg.consensus_seed,
+                mode=cfg.consensus_mode, guard=cfg.consensus_guard,
+                **horizon_args)
+        else:
+            em, hz = em_and_horizon(l, lp, pred, sphere_f32, lmask, cfg.em,
+                                    **horizon_args)
+        hp1, hp2, z_vp, h_vp1, h_vp2, combo = hz
+        return extra | {
+            "sphere_image": img_u8, "cnn_prediction": pred,
+            "vp": em.vp, "alive": em.alive, "counts": em.counts,
+            "counts_weighted": em.counts_weighted, "vp_assoc": em.vp_assoc,
+            "iterations": em.iterations, "em_valid": em.valid,
+            "hp1": hp1, "hp2": hp2, "zenith_vp": z_vp,
+            "horizon_vp1": h_vp1, "horizon_vp2": h_vp2, "best_combo": combo,
+        }
 
 
 def device_pipeline(l, lp, lmask, model, mean, cfg: PipelineConfig) -> dict:
@@ -214,11 +218,13 @@ def device_pipeline_full(images: torch.Tensor, model: cnn_mod.VPNet,
     """Grayscale images (B, H, W) in [0, 255] -> full pipeline outputs,
     with the on-device detector in front of :func:`device_pipeline_batch`
     (its outputs plus ``segments`` and ``segment_mask``)."""
-    lp, lmask = detect_segments_device(images, **cfg.det_kwargs())
-    l = torch.where(lmask[..., None], lineops.segments_to_homogeneous(lp), 0.0)
-    out = device_pipeline_batch(l, lp, lmask, model, mean, cfg)
-    out.update(segments=lp, segment_mask=lmask)
-    return out
+    with profiling.batch():
+        lp, lmask = detect_segments_device(images, **cfg.det_kwargs())
+        l = torch.where(lmask[..., None], lineops.segments_to_homogeneous(lp),
+                        0.0)
+        out = device_pipeline_batch(l, lp, lmask, model, mean, cfg)
+        out.update(segments=lp, segment_mask=lmask)
+        return out
 
 
 class Pipeline:
