@@ -1998,21 +1998,26 @@ def identical(a, b) -> bool:
 
 
 def em_bodies(pass_fn) -> int:
-    """How many EM loop bodies (``em.em._iteration`` calls) ``pass_fn()``
+    """How many EM loop bodies (``em.em._iteration`` calls and replays of
+    a plain trip's CUDA graph, ``em.em._Graph.replay``) ``pass_fn()``
     runs."""
     from vanishing_points_2017_tpu_torch.em import em as em_mod
 
-    orig, n = em_mod._iteration, [0]
+    orig, replay, n = em_mod._iteration, em_mod._Graph.replay, [0]
 
-    def counted(*args, **kwargs):
-        n[0] += 1
-        return orig(*args, **kwargs)
+    def counted(fn):
+        def run(*args, **kwargs):
+            n[0] += 1
+            return fn(*args, **kwargs)
+        return run
 
-    em_mod._iteration = counted
+    em_mod._iteration = counted(orig)
+    em_mod._Graph.replay = counted(replay)
     try:
         pass_fn()
     finally:
         em_mod._iteration = orig
+        em_mod._Graph.replay = replay
     return n[0]
 
 

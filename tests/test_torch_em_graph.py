@@ -1,0 +1,420 @@
+"""The EM's loop with split and merge gated from the host's trip count,
+and its plain trips replayed as one captured CUDA graph
+(``em/em.py``: ``_full_trip``, ``_Graph``, ``_PlainTrips``).
+
+On the CPU: the lockstep the host's gate rests on (every image still
+running at trip t is at iteration t), the gate against the body's own
+per-image gates, the loop bit for bit against an oracle that runs the
+full body on every trip (the loop before the gate), and the graph path's
+bookkeeping (buffers, copies in and out, the cache, the counters)
+rehearsed with the capture replaced by a plain call of the captured step.
+Marked ``gpu``: the same on the card with the real capture, run there
+(no JAX on that machine) with
+
+    python -m pytest --noconftest tests/test_torch_em_graph.py
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from vanishing_points_2017_tpu_torch.em import em as tem
+from vanishing_points_2017_tpu_torch.em import cluster as tcluster
+from vanishing_points_2017_tpu_torch.em.horizon import \
+    calculate_horizon_and_ortho_vp
+from vanishing_points_2017_tpu_torch.models import synth
+from vanishing_points_2017_tpu_torch.ops import sphere
+from vanishing_points_2017_tpu_torch.pipeline import pad_lines
+from vanishing_points_2017_tpu_torch.utils import profiling
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+POPULATIONS = os.path.join(ROOT, "assets", "examples", "jax_reference_em.npz")
+SAME = dict(rtol=0, atol=0, equal_nan=True)
+
+
+def bench_scenes(b: int, n_pad: int = 256, seed: int = 0,
+                 noise: float = 0.02, sphere_size: int = 240,
+                 device: str = "cpu") -> list:
+    """EM inputs (l, lp, grid, sphere, lmask) of ``b`` scenes drawn as the
+    port's bench draws them (``bench.make_inputs``: 30-60 lines per VP,
+    10-30 outliers), with segment noise, the idealized CNN grid and the
+    sphere image of the lines, stacked on ``device``."""
+    rng = np.random.default_rng(seed)
+    ls, lps, grids, masks = [], [], [], []
+    for _ in range(b):
+        scene = synth.make_scene(rng, lines_per_vp=int(rng.integers(30, 60)),
+                                 outliers=int(rng.integers(10, 30)),
+                                 noise=noise)
+        l, lp, m = pad_lines(scene.segments, n_pad)
+        ls.append(l), lps.append(lp), masks.append(m)
+        grids.append(synth.vp_grid_label(scene.vps).astype(np.float32))
+    l, lp, grid, m = (torch.from_numpy(np.stack(a)).to(device)
+                      for a in (ls, lps, grids, masks))
+    img = sphere.sphere_image_uint8(l, m, size=sphere_size).float()
+    return [l, lp, grid, img, m]
+
+
+def populations(rows=slice(None)) -> list:
+    """The 21 segment populations of the EM trajectory oracle (JAX's
+    lines, sphere image and grid), stacked."""
+    ref = np.load(POPULATIONS)
+    t = lambda k: torch.from_numpy(np.ascontiguousarray(ref[k][rows]))
+    return [t("l"), t("lp"), t("grid"), t("sphere").float(), t("lmask")]
+
+
+def oracle(args, cfg, on_trip=None) -> tem.EMResult:
+    """The loop before the host's gate: the full body on every trip.
+    ``on_trip(t, st)`` sees the state at the start of each trip, and
+    ``st`` None at the loop's end."""
+    st, ctx = tem._setup(*args, cfg)
+    t = 0
+    while not bool(st.done.all()):
+        if on_trip is not None:
+            on_trip(t, st)
+        st = tem._iteration(st, ctx)
+        t += 1
+    if on_trip is not None:
+        on_trip(t, None)
+    return tem._finalize(st, ctx)
+
+
+def assert_same(a, b):
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, **SAME)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The EM on the CPU is thousands of small ops: under the suite's
+    parallel workers, each with PyTorch's full thread pool, the pools'
+    waits multiply their time; one thread keeps each at its own cost."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---- the CPU: lockstep, the gate, the loop against the oracle
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    return bench_scenes(6)
+
+
+def record(args, cfg) -> dict:
+    """The oracle's run with, per trip, whether the running images are
+    all at iteration t, whether one of them still has a VP, and whether a
+    split or merge was due (``split_due.any() | merge_due.any()``, seen
+    as a call of ``_split_best_vp`` or ``_merge_vps``); and the loop's
+    result on the same inputs."""
+    trips, calls = [], []
+    with pytest.MonkeyPatch.context() as m:
+        for fn in ("_split_best_vp", "_merge_vps"):
+            def wrapped(*a, _orig=getattr(tem, fn), **k):
+                calls.append(fn)
+                return _orig(*a, **k)
+
+            m.setattr(tem, fn, wrapped)
+
+        def on_trip(t, st):
+            if trips:
+                trips[-1]["due"] = bool(calls)
+            calls.clear()
+            if st is None:
+                return
+            run = ~st.done
+            trips.append(dict(t=t, lockstep=bool((st.i[run] == t).all()),
+                              running=bool((run & (st.alive.sum(dim=1)
+                                                   > 0)).any())))
+
+        want = oracle(args, cfg, on_trip)
+    return dict(trips=trips, oracle=want,
+                loop=tem.expectation_maximisation(*args, cfg))
+
+
+@pytest.fixture(scope="module")
+def runs(scenes):
+    """(inputs, split_merge_freq) -> :func:`record`, each made once."""
+    inputs = {"scenes": lambda: scenes, "populations": populations}
+    memo = {}
+
+    def get(name, freq):
+        if (name, freq) not in memo:
+            memo[name, freq] = record(inputs[name](), tem.EMConfig(
+                split_merge_freq=freq))
+        return memo[name, freq]
+
+    return get
+
+
+@pytest.mark.parametrize("name", ["scenes", "populations"])
+def test_running_images_are_at_the_trip_count(name, runs):
+    """Every image not done at the start of trip t has i == t."""
+    trips = runs(name, 10)["trips"]
+    assert len(trips) > 10 and all(r["lockstep"] for r in trips)
+
+
+# the populations (B = 21, N = 512) at split_merge_freq 3 take ~50 s on one
+# CPU thread, so they run at 10 only
+CASES = [("scenes", 3), ("scenes", 10), ("populations", 10)]
+
+
+@pytest.mark.parametrize("name,freq", CASES)
+def test_full_trips_are_the_trips_with_a_split_or_merge_due(name, freq,
+                                                            runs):
+    """``_full_trip(t)`` against the body's own gates: a split or merge
+    is due on a trip exactly where the host says full and some running
+    image still has a VP."""
+    cfg = tem.EMConfig(split_merge_freq=freq)
+    trips = runs(name, freq)["trips"]
+    full = [r["t"] for r in trips if tem._full_trip(r["t"], cfg)]
+    assert full and len(full) < len(trips)
+    for r in trips:
+        assert r["due"] == (tem._full_trip(r["t"], cfg) and r["running"]), r
+
+
+@pytest.mark.parametrize("name,freq", CASES)
+def test_loop_is_bit_identical_to_the_full_body_oracle(name, freq, runs):
+    run = runs(name, freq)
+    assert_same(run["loop"], run["oracle"])
+
+
+def test_full_trip_gate_follows_the_configuration():
+    cfg = tem.EMConfig()
+    assert [t for t in range(120) if tem._full_trip(t, cfg)] == [
+        10, 20, 30, 40, 50, 60, 70, 80, 90, 100, 110]
+    off = dataclasses.replace(cfg, do_merge=False)
+    assert [t for t in range(120) if tem._full_trip(t, off)][-1] == 90
+    none = dataclasses.replace(cfg, do_merge=False, do_split=False)
+    assert not any(tem._full_trip(t, none) for t in range(120))
+    assert not any(tem._full_trip(t, dataclasses.replace(
+        cfg, split_merge_freq=0)) for t in range(120))
+
+
+# ---- the graph path's bookkeeping on the CPU, the capture a plain call
+
+
+class Reads:
+    """Counts the EM's host reads in the loop, in full trips and in
+    ``_finalize``, and its op-by-op trips, full and plain."""
+
+    def __init__(self, monkeypatch):
+        self.where = "loop"
+        self.n = {"loop": 0, "full": 0, "finalize": 0}
+        self.trips = {"full": 0, "plain": 0}
+        real = tem.host_bool
+
+        def host_bool(t):
+            self.n[self.where] += 1
+            return real(t)
+
+        monkeypatch.setattr(tem, "host_bool", host_bool)
+        monkeypatch.setattr(tcluster, "host_bool", host_bool)
+        iteration, finalize = tem._iteration, tem._finalize
+
+        def counted_iteration(*a, **k):
+            full = k.get("with_split_merge", True)
+            self.trips["full" if full else "plain"] += 1
+            self.where = "full" if full else "loop"
+            try:
+                return iteration(*a, **k)
+            finally:
+                self.where = "loop"
+
+        def counted_finalize(*a, **k):
+            self.where = "finalize"
+            try:
+                return finalize(*a, **k)
+            finally:
+                self.where = "loop"
+
+        monkeypatch.setattr(tem, "_iteration", counted_iteration)
+        monkeypatch.setattr(tem, "_finalize", counted_finalize)
+
+
+def traced_em(args, cfg, monkeypatch):
+    reads = Reads(monkeypatch)
+    with profiling.trace() as rec:
+        res = tem.expectation_maximisation(*args, cfg)
+    return res, rec, reads
+
+
+def check_counts(rec, reads, graphed: bool):
+    """Every trip a ``vp.em.iteration`` span; ``em.graph_trips`` = the
+    plain trips (0 op by op); ``em.host_reads`` = one ``done`` read per
+    trip and the loop's last, plus the full trips' and ``_finalize``'s
+    own reads."""
+    c = rec.counters
+    replays = c.get("em.graph_trips", 0)
+    trips = replays + sum(reads.trips.values())
+    if graphed:
+        assert reads.trips["plain"] == 0 and replays > 0
+    else:
+        assert replays == 0
+    assert reads.n["loop"] == trips + 1
+    assert c["em.host_reads"] == sum(reads.n.values())
+    return trips
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """The graph path on the CPU: the captured step is called as it is."""
+    monkeypatch.setattr(tem, "GRAPH_DEVICES", ("cpu",))
+    monkeypatch.setattr(tem, "_capture", lambda step, device: step)
+    monkeypatch.setattr(tem, "_local", tem.threading.local())
+    return tem._graphs
+
+
+def test_graph_path_rehearsed_on_the_cpu(scenes, cpu_graphs, monkeypatch):
+    """The graph path's buffers, copies and counters, on the CPU: the
+    result of the oracle, bit for bit; one graph per shape, refilled by
+    each call; every plain trip a replay (the phase loop's, at
+    split_merge_freq 3, below)."""
+    cfg = tem.EMConfig()
+    want = oracle(scenes, cfg)
+    res, rec, reads = traced_em(scenes, cfg, monkeypatch)
+    assert_same(res, want)
+    check_counts(rec, reads, graphed=True)
+    assert len(cpu_graphs()) == 1 and reads.trips["full"] > 0
+    # another call of the same shapes: the same graph, the new inputs
+    other = bench_scenes(6, seed=5)
+    assert_same(tem.expectation_maximisation(*other, cfg),
+                oracle(other, cfg))
+    assert len(cpu_graphs()) == 1
+    # the first result does not share the graph's buffers
+    assert_same(res, want)
+    # another N: a second graph; past the cap, the plain body op by op
+    wider = bench_scenes(6, n_pad=192)
+    assert_same(tem.expectation_maximisation(*wider, cfg),
+                oracle(wider, cfg))
+    assert len(cpu_graphs()) == 2
+    monkeypatch.setattr(tem, "GRAPH_CAP", 2)
+    small = bench_scenes(4, n_pad=128)
+    res, rec, reads = traced_em(small, cfg, monkeypatch)
+    assert len(cpu_graphs()) == 2
+    check_counts(rec, reads, graphed=False)
+    assert_same(res, oracle(small, cfg))
+
+
+def test_phase_loop_replays_its_plain_bodies(scenes, cpu_graphs,
+                                             monkeypatch):
+    cfg = tem.EMConfig(split_merge_freq=3, loop="phase")
+    want = oracle(scenes, dataclasses.replace(cfg, loop="uniform"))
+    res, rec, reads = traced_em(scenes, cfg, monkeypatch)
+    assert_same(res, want)
+    assert rec.counters["em.graph_trips"] == 2 * reads.trips["full"]
+
+
+# ---- the card
+
+
+@pytest.fixture
+def cuda(monkeypatch):
+    """The card, with a graph cache of the test's own: graphs that other
+    tests in the process captured would fill ``GRAPH_CAP``, and the plain
+    trips would run op by op."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    monkeypatch.setattr(tem, "_local", tem.threading.local())
+    return torch.device("cuda")
+
+
+def eager(monkeypatch):
+    """The plain trips op by op on the card (no graph)."""
+    monkeypatch.setattr(tem, "_graph_of", lambda st, ctx: None)
+
+
+def graphed(fn, monkeypatch):
+    """``fn()``, checked to run every plain trip as a graph replay."""
+    replays = [0]
+    with monkeypatch.context() as m:
+        reads = Reads(m)
+        real = tem._Graph.replay
+
+        def replay(self):
+            replays[0] += 1
+            return real(self)
+
+        m.setattr(tem._Graph, "replay", replay)
+        out = fn()
+    assert reads.trips["plain"] == 0 and replays[0] > 0
+    return out
+
+
+def _em_and_horizon(args, cfg):
+    res = tem.expectation_maximisation(*args, cfg)
+    return res, calculate_horizon_and_ortho_vp(res.vp, res.counts,
+                                               res.alive)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [32, 64])
+def test_graph_equals_the_eager_body_on_the_card(cuda, batch, monkeypatch):
+    """Bench scenes at the main path's chunk of 32 (at 64, two chunks
+    replay one graph with fresh inputs): the EM and both horizon points
+    bit for bit with and without the graph."""
+    from vanishing_points_2017_tpu_torch.batching import in_chunks
+
+    args = bench_scenes(batch, n_pad=512, sphere_size=500, device=cuda)
+    cfg = tem.EMConfig()
+    got = graphed(lambda: in_chunks(lambda *a: _em_and_horizon(a, cfg),
+                                    args), monkeypatch)
+    assert len(tem._graphs()) == 1
+    with monkeypatch.context() as m:
+        eager(m)
+        want = in_chunks(lambda *a: _em_and_horizon(a, cfg), args)
+    assert_same(got[0], want[0])
+    assert_same(got[1], want[1])
+    # a second call, other inputs of the same shapes
+    other = bench_scenes(batch, n_pad=512, seed=9, sphere_size=500,
+                         device=cuda)
+    got = graphed(lambda: in_chunks(lambda *a: _em_and_horizon(a, cfg),
+                                    other), monkeypatch)
+    assert len(tem._graphs()) == 1
+    with monkeypatch.context() as m:
+        eager(m)
+        want = in_chunks(lambda *a: _em_and_horizon(a, cfg), other)
+    assert_same(got[0], want[0])
+    assert_same(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_graph_on_the_trajectory_populations(cuda, monkeypatch):
+    from vanishing_points_2017_tpu_torch.batching import in_chunks
+
+    args = [a.to(cuda) for a in populations()]
+    for num_iter in (1, 2, 3, 100):
+        cfg = tem.EMConfig(num_iter=num_iter)
+        got = graphed(lambda: in_chunks(lambda *a: _em_and_horizon(a, cfg),
+                                        args), monkeypatch)
+        with monkeypatch.context() as m:
+            eager(m)
+            want = in_chunks(lambda *a: _em_and_horizon(a, cfg), args)
+        assert_same(got[0], want[0])
+        assert_same(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_another_shape_captures_another_graph(cuda, monkeypatch):
+    cfg = tem.EMConfig()
+    for n_pad, keys in ((512, 1), (256, 2), (512, 2)):
+        args = bench_scenes(32, n_pad=n_pad, device=cuda)
+        graphed(lambda: tem.expectation_maximisation(*args, cfg),
+                monkeypatch)
+        assert len(tem._graphs()) == keys
+
+
+@pytest.mark.gpu
+def test_counters_on_the_card(cuda, monkeypatch):
+    """``em.graph_trips`` = the plain trips, ``em.host_reads`` = the
+    trips' ``done`` reads plus the full trips' and ``_finalize``'s."""
+    args = bench_scenes(32, n_pad=512, sphere_size=500, device=cuda)
+    cfg = tem.EMConfig()
+    tem.expectation_maximisation(*args, cfg)  # captured outside the trace
+    res, rec, reads = traced_em(args, cfg, monkeypatch)
+    check_counts(rec, reads, graphed=True)
+    assert rec.counters["em.graph_trips"] > reads.trips["full"] > 0

@@ -7,21 +7,34 @@ lines are padded with an ``lmask``; variances are carried as ``log s``.
 The JAX ``lax.while_loop`` bodies become Python loops over batched state:
 every loop runs while ANY image still needs it, and an image whose own
 condition is false keeps its state unchanged — what a vmapped
-``while_loop`` does. The loop conditions are read on the host, one
-device-to-host sync per iteration, each through ``reads.host_bool``,
-which counts it (``em.host_reads``) in a trace session; the call is the
-span ``vp.em`` and each loop body ``vp.em.iteration``.
+``while_loop`` does. The loop conditions are read on the host, each
+through ``reads.host_bool``, which counts it (``em.host_reads``) in a
+trace session; the call is the span ``vp.em`` and each loop body
+``vp.em.iteration``.
+
+The images advance in lockstep: each trip either ends an image (it
+converged or lost its last VP) or moves it on by one iteration, so every
+image still running at trip ``t`` is at iteration ``t``. Split and merge
+are gated by ``i % split_merge_freq``, so they can only be due on the
+trips :func:`_full_trip` picks from the host's trip count; every other
+trip runs the plain body (split and merge left out), which reads nothing
+back and gives the same state.
 
 ``EMConfig.loop`` picks the JAX package's loop structure. ``"uniform"``
-(the default) runs one body per trip, with split and merge gated by
-``i % split_merge_freq``; a split or merge step with no image due is
-skipped outright, which leaves every state unchanged, as the gated JAX
-body does. ``"phase"`` runs one full body and then
-``split_merge_freq - 1`` bodies with split and merge statically off per
-trip: the images advance in lockstep (each either moves one iteration or
-is done), so none is due in those bodies, and they read nothing back;
-``done`` is read once per trip. Its outputs are bit-identical to the
+(the default) runs one body per trip and reads ``done`` after each: the
+full body on :func:`_full_trip`'s trips, where a split or merge step with
+no image due is skipped outright (leaving every state unchanged, as the
+gated JAX body does), the plain body on the others. ``"phase"`` runs one
+full body and then ``split_merge_freq - 1`` plain bodies per trip, and
+reads ``done`` once per trip. Its outputs are bit-identical to the
 uniform loop's; bodies run on images already done leave them unchanged.
+
+On a CUDA device a plain body is one replay of a CUDA graph
+(:class:`_Graph`), captured once per shape and configuration over
+buffers of its own: each call copies its inputs in, consecutive plain
+trips replay back to back with the state updated in place, and the
+state is copied in and out only where a plain trip meets a full one or
+the end. On the CPU the plain body runs op by op.
 
 Reference quirks kept (see the JAX module): split's in-image check on the
 raw slot index, merge writing s[k] before validating, NaN stddevs sorting
@@ -32,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -47,6 +61,10 @@ from .reads import host_bool
 LOG_S_THRESH = prob.LOG_S_FLOOR  # log(1e-200)
 SPLIT_MERGE_IT = 100  # reference hardcodes split_merge_it = 100
 MERGE_MAX_STDD = 0.01  # merge_vps' own default max_stdd
+# where the plain body runs as a captured graph, and how many graphs a
+# thread keeps; further shapes run it op by op
+GRAPH_DEVICES = ("cuda",)
+GRAPH_CAP = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,69 +426,204 @@ def _setup(l, lp, cnn_response, sphere_image, lmask, cfg: EMConfig):
 
 def _iteration(st: _State, ctx: _Ctx, with_split_merge: bool = True
                ) -> _State:
-    """One pass of the loop body for every image not yet done: the split
-    move when due, the E-step, the M-step (weighted TLS refit and
-    variance update), the periodic merge when due, the buffer swap.
-    ``with_split_merge=False`` leaves split and merge out (the phase
-    loop's plain bodies), so the body reads nothing back to the host."""
+    """One pass of the loop body for every image not yet done, in the span
+    ``vp.em.iteration`` (see :func:`_body`)."""
     with profiling.span("vp.em.iteration"):
-        cfg, l = ctx.cfg, ctx.l
-        i, v_cur, v_next, log_s, alive, done, empty = st
-        b = l.shape[0]
-        freq = cfg.split_merge_freq
-        empty_now = torch.sum(alive, dim=1) == 0
-        go = ~done & ~empty_now
+        return _body(st, ctx, with_split_merge)
+
+
+def _body(st: _State, ctx: _Ctx, with_split_merge: bool) -> _State:
+    """The loop body: the split move when due, the E-step, the M-step
+    (weighted TLS refit and variance update), the periodic merge when
+    due, the buffer swap. ``with_split_merge=False`` leaves split and
+    merge out (the plain body), so the body reads nothing back to the
+    host and runs the same ops on the same shapes every time."""
+    cfg, l = ctx.cfg, ctx.l
+    i, v_cur, v_next, log_s, alive, done, empty = st
+    b = l.shape[0]
+    freq = cfg.split_merge_freq
+    empty_now = torch.sum(alive, dim=1) == 0
+    go = ~done & ~empty_now
+    if with_split_merge:
         phase = (torch.remainder(i, freq) == 0) & (i > 0)
-        vc, ls, al = v_cur, log_s, alive
+    vc, ls, al = v_cur, log_s, alive
 
-        # ---- split move (every split_merge_freq iterations, 0 < i < 100)
-        if cfg.do_split and with_split_merge:
-            split_due = go & phase & (i < SPLIT_MERGE_IT)
-            if host_bool(split_due.any()):
-                _, w_s = ctx.estep(vc, al, ls)
-                vc, ls, al = _split_best_vp(vc, ls, al, w_s, split_due, ctx)
+    # ---- split move (every split_merge_freq iterations, 0 < i < 100)
+    if cfg.do_split and with_split_merge:
+        split_due = go & phase & (i < SPLIT_MERGE_IT)
+        if host_bool(split_due.any()):
+            _, w_s = ctx.estep(vc, al, ls)
+            vc, ls, al = _split_best_vp(vc, ls, al, w_s, split_due, ctx)
 
-        # ---- E-step + M-step: weighted TLS refit + variance update
-        p, w = ctx.estep(vc, al, ls)
-        if cfg.do_iterations:
-            new_vps, vp_ok = wmod.calc_new_vanishing_point(l, w)
-            s_log_new = torch.clamp(_s_update_log(p.lvsq.transpose(1, 2),
-                                                  p.p_vl),
-                                    LOG_S_THRESH, ctx.log_max_stdd)
-            s_nan = torch.isnan(s_log_new)
-            v_next2 = torch.where((al & vp_ok)[..., None], new_vps, vc)
-            log_s2 = torch.where(al & vp_ok, s_log_new, ls)
-            err = _vp_change(vc, v_next2)
-            contributes = al & vp_ok & ~s_nan
-            max_err = torch.amax(torch.where(contributes, err, 0.0), dim=1)
-            removed = al & (~vp_ok | s_nan | (contributes & (err > 1.5)))
-            alive2 = al & ~removed
-        else:
-            v_next2, log_s2, alive2 = vc, ls, al
-            max_err = torch.zeros(b, dtype=torch.float32, device=l.device)
-        vn = _sel(go, v_next2, v_next)
-        ls = _sel(go, log_s2, ls)
-        al = _sel(go, alive2, al)
-        converged = ((max_err < cfg.final_convergence)
-                     | (i == cfg.num_iter - 1) | (not cfg.do_iterations))
+    # ---- E-step + M-step: weighted TLS refit + variance update
+    p, w = ctx.estep(vc, al, ls)
+    if cfg.do_iterations:
+        new_vps, vp_ok = wmod.calc_new_vanishing_point(l, w)
+        s_log_new = torch.clamp(_s_update_log(p.lvsq.transpose(1, 2),
+                                              p.p_vl),
+                                LOG_S_THRESH, ctx.log_max_stdd)
+        s_nan = torch.isnan(s_log_new)
+        v_next2 = torch.where((al & vp_ok)[..., None], new_vps, vc)
+        log_s2 = torch.where(al & vp_ok, s_log_new, ls)
+        err = _vp_change(vc, v_next2)
+        contributes = al & vp_ok & ~s_nan
+        max_err = torch.amax(torch.where(contributes, err, 0.0), dim=1)
+        removed = al & (~vp_ok | s_nan | (contributes & (err > 1.5)))
+        alive2 = al & ~removed
+    else:
+        v_next2, log_s2, alive2 = vc, ls, al
+        max_err = torch.zeros(b, dtype=torch.float32, device=l.device)
+    vn = _sel(go, v_next2, v_next)
+    ls = _sel(go, log_s2, ls)
+    al = _sel(go, alive2, al)
+    converged = ((max_err < cfg.final_convergence)
+                 | (i == cfg.num_iter - 1) | (not cfg.do_iterations))
 
-        # ---- periodic merge (only when not converged this iteration)
-        if cfg.do_merge and with_split_merge:
-            merge_due = (go & ~converged & phase
-                         & (i <= SPLIT_MERGE_IT + freq))
-            if host_bool(merge_due.any()):
-                vn, ls, al = _merge_vps(vn, ls, al, cfg.merge_thresh,
-                                        merge_due, ctx)
+    # ---- periodic merge (only when not converged this iteration)
+    if cfg.do_merge and with_split_merge:
+        merge_due = (go & ~converged & phase
+                     & (i <= SPLIT_MERGE_IT + freq))
+        if host_bool(merge_due.any()):
+            vn, ls, al = _merge_vps(vn, ls, al, cfg.merge_thresh,
+                                    merge_due, ctx)
 
-        # buffer swap for the next iteration; images already done keep
-        # their whole state, as under a vmapped while_loop
-        swap = go & ~converged
-        run = ~done
-        return _State(i=torch.where(swap, i + 1, i),
-                      v_cur=_sel(run, _sel(swap, vn, vc), v_cur),
-                      v_next=_sel(run, vn, v_next), log_s=_sel(run, ls, log_s),
-                      alive=_sel(run, al, alive), done=done | (go & converged)
-                      | empty_now, empty=empty | (run & empty_now))
+    # buffer swap for the next iteration; images already done keep
+    # their whole state, as under a vmapped while_loop
+    swap = go & ~converged
+    run = ~done
+    return _State(i=torch.where(swap, i + 1, i),
+                  v_cur=_sel(run, _sel(swap, vn, vc), v_cur),
+                  v_next=_sel(run, vn, v_next), log_s=_sel(run, ls, log_s),
+                  alive=_sel(run, al, alive), done=done | (go & converged)
+                  | empty_now, empty=empty | (run & empty_now))
+
+
+def _full_trip(t: int, cfg: EMConfig) -> bool:
+    """Whether trip ``t`` of the uniform loop runs the full body: the
+    trips on which :func:`_body`'s split or merge gate can hold for an
+    image at iteration ``t``, which every image still running is (module
+    docstring). On the others no image is due and the plain body gives
+    the same state."""
+    f = cfg.split_merge_freq
+    if f == 0 or t == 0 or t % f:
+        return False
+    return ((cfg.do_split and t < SPLIT_MERGE_IT)
+            or (cfg.do_merge and t <= SPLIT_MERGE_IT + f))
+
+
+def _capture(step, device: torch.device):
+    """``step`` captured as a CUDA graph on ``device``, after one run of
+    it on the capture's side stream (``torch.cuda.graphs``' warm-up rule)
+    -> a function that replays it there, whichever device is current."""
+    with torch.cuda.device(device):
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            step()
+        torch.cuda.current_stream().wait_stream(s)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
+            step()
+
+    def replay():
+        with torch.cuda.device(device):
+            g.replay()
+
+    return replay
+
+
+_CTX_TENSORS = ("l", "lp", "lmask", "lweight", "lsim", "langles")
+
+
+def _ctx_tensors(ctx: _Ctx) -> tuple:
+    return (ctx.pdfpar.means, ctx.pdfpar.weights) + tuple(
+        getattr(ctx, k) for k in _CTX_TENSORS)
+
+
+class _Graph:
+    """The plain body captured over buffers of its own: ``ctx`` and
+    ``st`` hold a call's context and loop state, and each :meth:`replay`
+    runs one plain trip and writes the new state back into ``st``."""
+
+    def __init__(self, st: _State, ctx: _Ctx):
+        # plain tensors, so calls in and out of inference mode can fill them
+        with torch.inference_mode(False):
+            p = ctx.pdfpar
+            self.ctx = ctx._replace(
+                pdfpar=p._replace(means=p.means.clone(),
+                                  weights=p.weights.clone()),
+                **{k: getattr(ctx, k).clone() for k in _CTX_TENSORS})
+            self.st = _State(*(x.clone() for x in st))
+
+            def step():
+                new = _body(self.st, self.ctx, with_split_merge=False)
+                for buf, x in zip(self.st, new):
+                    buf.copy_(x)
+
+            self.graph = _capture(step, ctx.l.device)
+
+    def load_ctx(self, ctx: _Ctx) -> None:
+        for buf, x in zip(_ctx_tensors(self.ctx), _ctx_tensors(ctx)):
+            buf.copy_(x)
+
+    def replay(self) -> _State:
+        with profiling.span("vp.em.iteration"):
+            self.graph()
+        profiling.count("em.graph_trips")
+        return self.st
+
+
+_local = threading.local()
+
+
+def _graphs() -> dict:
+    """This thread's captured plain bodies by key (a graph's buffers serve
+    one call at a time)."""
+    if not hasattr(_local, "graphs"):
+        _local.graphs = {}
+    return _local.graphs
+
+
+def _graph_of(st: _State, ctx: _Ctx) -> _Graph | None:
+    """The captured plain body for this call's shapes and configuration,
+    captured now if new; None off ``GRAPH_DEVICES`` and past
+    ``GRAPH_CAP``."""
+    if ctx.l.device.type not in GRAPH_DEVICES:
+        return None
+    key = (ctx.l.device, ctx.cfg,
+           tuple((x.shape, x.dtype) for x in _ctx_tensors(ctx) + tuple(st)))
+    graphs = _graphs()
+    if key not in graphs and len(graphs) < GRAPH_CAP:
+        graphs[key] = _Graph(st, ctx)
+    return graphs.get(key)
+
+
+class _PlainTrips:
+    """One call's plain trips: replays of its shapes' graph (the state
+    copied in when it comes from elsewhere), else the plain body op by
+    op."""
+
+    def __init__(self, st: _State, ctx: _Ctx):
+        self.ctx = ctx
+        self.graph = _graph_of(st, ctx)
+        if self.graph is not None:
+            self.graph.load_ctx(ctx)
+
+    def __call__(self, st: _State) -> _State:
+        g = self.graph
+        if g is None:
+            return _iteration(st, self.ctx, with_split_merge=False)
+        if st is not g.st:
+            for buf, x in zip(g.st, st):
+                buf.copy_(x)
+        return g.replay()
+
+    def own(self, st: _State) -> _State:
+        """``st`` in tensors of its own, not the graph's buffers, which the
+        next call overwrites."""
+        if self.graph is not None and st is self.graph.st:
+            return _State(*(x.clone() for x in st))
+        return st
 
 
 def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
@@ -484,10 +637,14 @@ def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
     (B, S, S) in Agg orientation, lmask (B, N) validity."""
     with profiling.span("vp.em"):
         st, ctx = _setup(l, lp, cnn_response, sphere_image, lmask, cfg)
-        plain = max(cfg.split_merge_freq - 1, 0) if cfg.loop == "phase" \
-            else 0
+        plain = _PlainTrips(st, ctx)
+        t = 0
         while not host_bool(st.done.all()):
-            st = _iteration(st, ctx)
-            for _ in range(plain):
-                st = _iteration(st, ctx, with_split_merge=False)
-        return _finalize(st, ctx)
+            if cfg.loop == "phase":
+                st = _iteration(st, ctx)
+                for _ in range(cfg.split_merge_freq - 1):
+                    st = plain(st)
+            else:
+                st = _iteration(st, ctx) if _full_trip(t, cfg) else plain(st)
+            t += 1
+        return _finalize(plain.own(st), ctx)

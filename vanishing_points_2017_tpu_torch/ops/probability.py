@@ -138,8 +138,9 @@ def calc_probabilities(pdfpar: PDFParams, v: torch.Tensor, alive: torch.Tensor,
                        wrap_quirk: bool = True) -> PDFResult:
     """Full E-step. v (B, M, 3), alive (B, M), l (B, N, 3), lp (B, N, 4),
     log_s (B, M), lmask (B, N). Dead slots become the placeholder (0, 0, 1)
-    before any geometry and get a zero prior."""
-    ph = torch.tensor([0.0, 0.0, 1.0], dtype=v.dtype, device=v.device)
+    before any geometry and get a zero prior. The placeholder is made on
+    the device (a copy from the host would break a CUDA graph capture)."""
+    ph = (torch.arange(3, device=v.device) == 2).to(v.dtype)
     v_safe = torch.where(alive[..., None], v, ph)
 
     angles = calc_angles(v_safe)

@@ -16,7 +16,7 @@ the device trace's clock, and logging.
   ``trace.json``, a Chrome trace, into ``log_dir`` when one is given.
 * :func:`get_logger`: stdlib logging in one format.
 
-The spans and the counter, and what reads them
+The spans and the counters, and what reads them
 (``vpbench/metrics/``):
 
 | name | where | read as |
@@ -27,9 +27,10 @@ The spans and the counter, and what reads them
 | ``vp.render`` | ``ops.sphere.sphere_image_uint8`` | ``render_span_ms`` |
 | ``vp.cnn`` | ``models.cnn.VPNet.forward`` | ``cnn_span_ms`` |
 | ``vp.em`` | ``em.em.expectation_maximisation``, per chunk | ``em_span_ms``, ``em_idle_ms``, ``em_launches`` |
-| ``vp.em.iteration`` | each ``em.em._iteration`` call | ``em_trips`` |
+| ``vp.em.iteration`` | each ``em.em._iteration`` call and each ``em.em._Graph.replay`` (a plain trip's CUDA graph) | ``em_trips`` |
 | ``vp.horizon`` | ``em.horizon.calculate_horizon_and_ortho_vp``, per chunk | ``horizon_span_ms`` |
 | counter ``em.host_reads`` | ``em.reads.host_bool``: every device-to-host read of the EM | ``em_host_reads`` |
+| counter ``em.graph_trips`` | ``em.em._Graph.replay``: the EM's trips run as one CUDA graph replay | none yet |
 
 Device idle outside every layer span (the copy in, the readback, the
 caller's loop) is ``outside_idle_ms``. A span never synchronizes and
