@@ -5,9 +5,9 @@
 
 In one process, per seed: the pool a run of that seed draws, the pool
 batches that such a run judges sent once each through the timed path's
-call (``run.make_step``, at the cell's own batch and sizes), and the
-outputs judged as a run judges them (``vpbench/judge.py``); with
-``--control``, also the control: the plain
+call (the serving job's ``make_step``, at the cell's own batch and
+sizes), and the outputs judged as a run judges them
+(``vpbench/judge.py``); with ``--control``, also the control: the plain
 reference put in the program's place and computed one precision step
 below what the configuration states (``reference.pipeline.PRECISIONS``),
 judged the same way. Prints one JSON line per seed and side, with each
@@ -24,6 +24,7 @@ import sys
 import torch
 
 from . import judge, run, scenes, weights
+from .jobs.serve import make_step, pipeline_config
 from .reference.pipeline import Reference
 
 
@@ -38,10 +39,10 @@ def readings(wl_name: str, seeds: list, control: bool, device: str = "cuda",
     config = config or cfg_file
     traffic = traffic or traffic_file
     dev = torch.device(device)
-    cfg = run.pipeline_config(config)
+    cfg = pipeline_config(config)
     params, mean = weights.load(config, root, dev)
     pipe = Pipeline(params, mean, cfg, device=dev)
-    step = run.make_step(pipe.model, mean, cfg, dev)
+    step = make_step(pipe.model, mean, cfg, dev)
     ref = Reference(config, params, mean)
     width, height = config["image"]["width"], config["image"]["height"]
     out = []
@@ -61,7 +62,7 @@ def readings(wl_name: str, seeds: list, control: bool, device: str = "cuda",
             limits = {k: traffic["judge"]["limits"][k] for k in numbers}
             rec = {"seed": seed, "side": side, "numbers": numbers,
                    "limits": limits,
-                   "correct": judge.verdict(numbers, limits),
+                   "correct": run.verdict(numbers, limits),
                    "per_image": per}
             sys.stderr.write(json.dumps(rec) + "\n")
             out.append(rec)

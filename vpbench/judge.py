@@ -30,7 +30,7 @@ The numbers, each over the images judged:
 
 A cell's ``vpbench/limits/<workload>.json`` gives the tolerances
 (``check``) and each number's limit; a run is correct when no number
-exceeds its limit (a NaN exceeds every limit).
+exceeds its limit (``run.verdict``: a NaN exceeds every limit).
 """
 
 from __future__ import annotations
@@ -126,7 +126,3 @@ def judge(ref: Reference, batches: list, outs: list, check: dict,
     numbers = {k: numbers[k] for k in NUMBERS if k in numbers}
     return numbers, {k: v.tolist() for k, v in per.items()}
 
-
-def verdict(numbers: dict, limits: dict) -> bool:
-    """True when every number is within its limit."""
-    return all(numbers[k] <= limits[k] for k in numbers)

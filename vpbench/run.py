@@ -4,37 +4,34 @@
                            --trace <0|1>
 
 The cell is an entry of ``workloads`` in ``BENCHMARK.json``; its
-configuration file (``configs``' ``file``) and its traffic file
-(``vpbench/traffic/<traffic>.json``) say what to build and what to send.
-Measures the PyTorch port (``vanishing_points_2017_tpu_torch``) on one
-CUDA card, and raises without one.
+configuration file (``configs``' ``file``), its traffic file
+(``vpbench/traffic/<traffic>.json``) and its limits file
+(``vpbench/limits/<cell>.json``) say what to build, what to send and
+what to hold the outputs to. The traffic file names the cell's job
+(``"job"``, ``"serve"`` without it): ``vpbench/jobs/<job>.py``, which
+builds the program and runs its steps (``vpbench/jobs/__init__.py``
+sets out what a job supplies). Measures the PyTorch port
+(``vanishing_points_2017_tpu_torch``) on one CUDA card, and raises
+without one.
 
-Set-up (``setup_s``, from the start of this module): import the port,
-load or build its kernels, read the configuration's weights and hand
-them to the program (``vpbench/weights.py``), draw the cell's pool of
-batches from ``--seed`` (``vpbench/scenes.py``), and warm up by sending
-a few pool batches. Then the window: a closed loop with one batch in
-flight, cycling through the pool in an order drawn from ``--seed``, each
-batch a host-to-device copy from pinned memory, the entry call
-(``pipeline.device_pipeline_full`` on images, ``device_pipeline_batch``
-on padded lines) and the horizon's two points read back, until
-``--seconds`` have passed and every judged batch has run.
-``images_per_s`` is every image completed over the whole window;
-``batch_ms_p95`` the 95th percentile of all batches' times, each from
-its copy's dispatch to its horizon on the host.
+Set-up (``setup_s``, from the start of this module): the job's build
+and its warm-up. Then the window: a closed loop with one step in flight,
+the job's steps one after another, each timed on the host from its start
+to the host read that ends it, until ``--seconds`` have passed and every
+judged step has run. ``images_per_s`` is every item completed over the
+whole window; ``batch_ms_p95`` the 95th percentile of all steps' times.
 
 ``--trace 1`` runs the same window, then profiles the window's first
-batches again in the same loop (``vpbench/profile.py``), times each
-stage in passes of its own (``vpbench/stages.py``), and prints the
-per-layer metrics that the readers of ``vpbench/metrics/`` take from
-that record.
+steps again in the same loop (``vpbench/profile.py``), takes the job's
+traced extras, and prints the per-layer metrics that the readers of
+``vpbench/metrics/`` take from that record (``Trace``); the readers of
+the port's spans run the same steps once more (``vpbench/spans.py``).
 
 Once the window has closed and the device's peak memory is read, the
-program's state is freed and the plain reference judges the outputs of
-the pool batches drawn from the seed for judging (``vpbench/judge.py``),
-on the weights the program was given. The numbers compared and their
-limits are the last lines on stderr and the last key of the result, the
-last line on stdout.
+job frees the program's state and judges the kept outputs of the judged
+steps by the plain reference. The numbers compared and their limits are
+the last lines on stderr and the last key of the result, the last line
+on stdout.
 """
 
 from __future__ import annotations
@@ -56,9 +53,9 @@ import numpy as np  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "vanishing_points_2017_tpu")
-WARM_BATCHES = 3   # pool batches sent in set-up
-TRACE_BATCHES = 8  # the window's first batches, profiled and stage-timed
-JUDGED_SPAN = 64   # judged batches are drawn among the window's first 64
+DEFAULT_JOB = "serve"  # the job of a cell whose traffic names none
+TRACE_BATCHES = 8  # the window's first steps, profiled and traced again
+JUDGED_SPAN = 64   # judged steps are drawn among the window's first 64
 
 
 def log(msg: str) -> None:
@@ -101,35 +98,27 @@ def cell_metrics(bench: dict, wl: dict, trace: bool) -> list:
             and m["moves"] in names]
 
 
-def reader(name: str, root: str = ROOT):
-    """``vpbench/metrics/<name>.py``'s ``read``."""
-    path = os.path.join(root, "vpbench", "metrics", f"{name}.py")
+def _load(kind: str, name: str, root: str):
+    """``vpbench/<kind>/<name>.py`` of the checkout at ``root``, loaded
+    by path."""
+    path = os.path.join(root, "vpbench", kind, f"{name}.py")
+    if not os.path.isfile(path):
+        raise ValueError(f"no {kind[:-1]} {name!r}: {path} is not there")
     spec = importlib.util.spec_from_file_location(
-        f"vpbench_metric_{name.replace('.', '_')}", path)
+        f"vpbench_{kind[:-1]}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
 
 
-def pipeline_config(config: dict):
-    """The configuration's ``pipeline`` section as the port's
-    ``PipelineConfig``."""
-    from vanishing_points_2017_tpu_torch.em import EMConfig
-    from vanishing_points_2017_tpu_torch.pipeline import PipelineConfig
+def reader(name: str, root: str = ROOT):
+    """``vpbench/metrics/<name>.py``'s ``read``."""
+    return _load("metrics", name, root).read
 
-    p = config["pipeline"]
-    d, hz = p["detector"], p["horizon"]
-    cfg = PipelineConfig(
-        sphere_size=p["sphere_size"], n_pad=p["n_pad"], em=EMConfig(**p["em"]),
-        maxbest=hz["maxbest"], theta_vmin=hz["theta_vmin"],
-        horizon_pos_gate_tol=hz["pos_gate_ideal_tol"],
-        cnn_dtype=config["precision"]["cnn"], det_min_count=d["min_count"],
-        det_min_len_px=d["min_len_px"], det_min_density=d["min_density"],
-        det_selection=d["selection"], det_max_records=d["max_records"],
-        det_topk=d["topk"])
-    if cfg.det_kwargs()["max_segments"] != d["max_segments"]:
-        raise ValueError("the detector's slots differ from n_pad")
-    return cfg
+
+def job(name: str, root: str = ROOT):
+    """``vpbench/jobs/<name>.py``, the module that runs a cell's job."""
+    return _load("jobs", name, root)
 
 
 def percentile(values: list, q: float) -> float:
@@ -138,14 +127,21 @@ def percentile(values: list, q: float) -> float:
     return s[max(0, math.ceil(q / 100.0 * len(s)) - 1)]
 
 
-def window_stats(times: list, batch: int, window_s: float) -> dict:
-    """The window's numbers from every batch's seconds: the rate is every
-    image over the whole window, the p95 over all batches."""
-    return {"images_per_s": len(times) * batch / window_s,
+def window_stats(times: list, items: int, window_s: float) -> dict:
+    """The window's numbers from every step's seconds, each step
+    completing ``items`` items: the rate is every item over the whole
+    window, the p95 over all steps."""
+    return {"images_per_s": len(times) * items / window_s,
             "seconds": window_s, "batches": len(times),
-            "images": len(times) * batch,
+            "images": len(times) * items,
             "batch_ms_p95": percentile(times, 95) * 1e3,
             "batch_ms_median": statistics.median(times) * 1e3}
+
+
+def verdict(numbers: dict, limits: dict) -> bool:
+    """True when every number is within its limit (a NaN exceeds every
+    limit)."""
+    return all(numbers[k] <= limits[k] for k in numbers)
 
 
 def card_info(dev) -> tuple[str, str | None]:
@@ -164,38 +160,25 @@ def card_info(dev) -> tuple[str, str | None]:
 
 
 class Trace:
-    """What a traced run recorded, for the metric readers."""
+    """What a traced run recorded, for the metric readers: the window's
+    numbers, the profiled stretch, the stretch itself (``stretch_step(i)``
+    for i < ``stretch_steps``: the window's first steps, as the window ran
+    them, and ``times``, every window step's seconds), and the job's
+    traced extras, whose attributes it answers to as its own."""
 
-    def __init__(self, config, traffic, dev, window, stage_ms, em_syncs,
-                 profile, judged):
+    def __init__(self, config, traffic, dev, window, profile, stretch_step,
+                 stretch_steps, times, extras=None):
         self.config, self.traffic, self.dev = config, traffic, dev
-        self.window, self.stage_ms, self.em_syncs = window, stage_ms, em_syncs
-        self.profile = profile
-        self._judged = judged
+        self.window, self.profile = window, profile
+        self.stretch_step, self.stretch_steps = stretch_step, stretch_steps
+        self.times, self._extras = times, extras
         self.on_card = dev.type == "cuda"
 
-    def stage_median_ms(self, stage: str):
-        v = self.stage_ms.get(stage)
-        return statistics.median(v) * 1e3 if v else None
-
-    def device_images(self, k: int):
-        """The images of the ``k``-th judged batch, on the device."""
-        return self._judged[k][0].get("images")
-
-    def device_lines(self, k: int):
-        """The (l, lmask) the ``k``-th judged batch was rendered from in
-        the window."""
-        import torch
-
-        batch, o = self._judged[k]
-        if "images" in batch:
-            from vanishing_points_2017_tpu_torch.ops import lines as lineops
-            lm = o["segment_mask"]
-            l = torch.where(lm[..., None],
-                            lineops.segments_to_homogeneous(o["segments"]),
-                            0.0)
-            return l, lm
-        return batch["l"], batch["lmask"]
+    def __getattr__(self, name: str):
+        extras = self.__dict__.get("_extras")
+        if extras is None:
+            raise AttributeError(name)
+        return getattr(extras, name)
 
     def cuda_ms(self, fn, iters: int = 20) -> float:
         """Mean milliseconds per call of ``fn`` between CUDA events, after
@@ -218,28 +201,12 @@ def forbidden_modules() -> list:
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
 
-def make_step(model, mean, cfg, dev):
-    """The timed path's call: one pool batch (host tensors: ``images``,
-    or ``l``, ``lp``, ``lmask``) copied to ``dev`` without blocking and
-    sent through the entry -> its outputs on the device."""
-    from vanishing_points_2017_tpu_torch.pipeline import (
-        device_pipeline_batch, device_pipeline_full)
-
-    def step(host: dict) -> dict:
-        x = {n: t.to(dev, non_blocking=True) for n, t in host.items()}
-        if "images" in x:
-            return device_pipeline_full(x["images"], model, mean, cfg)
-        return device_pipeline_batch(x["l"], x["lp"], x["lmask"], model,
-                                     mean, cfg)
-
-    return step
-
-
 def window_order(traffic: dict, seed: int) -> tuple[list, list]:
-    """-> (the pool batches in the order the window sends them, the
-    positions among the window's first :data:`JUDGED_SPAN` batches whose
-    outputs are judged: distinct pool batches), both drawn from
-    ``seed``."""
+    """-> (the pool's entries in the order the window sends them, the
+    positions among the window's first :data:`JUDGED_SPAN` steps whose
+    outputs are judged: distinct pool entries), both drawn from ``seed``:
+    a helper for jobs that cycle through a pool of ``traffic["pool"]``
+    and judge ``traffic["judged"]`` of them."""
     n_pool = traffic["pool"]
     rng = np.random.default_rng([seed, 1])
     order = [int(k) for k in rng.permutation(n_pool)]
@@ -279,73 +246,53 @@ def run(bench: dict, wl: dict, config: dict, traffic: dict, seed: int,
     """One run of the cell -> the result record (the line's object)."""
     import torch
 
-    from vanishing_points_2017_tpu_torch import kernels
-    from vanishing_points_2017_tpu_torch.pipeline import Pipeline
+    module = job(traffic.get("job", DEFAULT_JOB), root)
+    marks: list = []
 
-    from . import judge, scenes, weights
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
 
-    marks = [("import", time.perf_counter())]
     dev = torch.device(device)
     gpu = dev.type == "cuda"
     if gpu:
         dev = torch.device("cuda", dev.index or 0)
-        for k in kernels.all_kernels():
-            k.build()
-        torch.cuda.set_device(dev)
-    marks.append(("kernels", time.perf_counter()))
-    cfg = pipeline_config(config)
-    params, mean = weights.load(config, root, dev)
-    pipe = Pipeline(params, mean, cfg, device=dev)
-    model = pipe.model
-    marks.append(("weights", time.perf_counter()))
-
-    width, height = config["image"]["width"], config["image"]["height"]
-    pool = scenes.draw_pool(traffic, width, height, seed, dev)
-    batch = traffic["batch"]
+    work = module.build(config, traffic, seed, dev, root, mark)
     if gpu:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    marks.append(("pool", time.perf_counter()))
-
-    step = make_step(model, mean, cfg, dev)
-    order, judged_pos = window_order(traffic, seed)
-    for k in order[-WARM_BATCHES:]:
-        out = step(pool.batch(k))
-        out["hp1"].cpu(), out["hp2"].cpu()
-    del out
+    work.warm_up()
     if gpu:
         torch.cuda.synchronize(dev)
-    marks.append(("warm-up", time.perf_counter()))
+    mark("warm-up")
     log("set-up: " + ", ".join(
         f"{n} {t - p:.3f} s" for (n, t), p in
         zip(marks, [_T0] + [t for _, t in marks[:-1]])))
 
-    judged: list = []
+    judged_pos = work.judged
+    kept: list = []
     times: list = []
     need = judged_pos[-1] + 1 if judged_pos else 1
     stat0, t_cpu = _cpu_times(), time.process_time()
     t_start = time.perf_counter()
     setup_s = t_start - _T0
     while True:
-        k = order[len(times) % len(order)]
         t0 = time.perf_counter()
-        out = step(pool.batch(k))
-        out["hp1"].cpu(), out["hp2"].cpu()
+        out = work.step(len(times))
         t1 = time.perf_counter()
         if len(times) in judged_pos:
-            judged.append(out)
+            kept.append(work.keep(len(times), out))
         times.append(t1 - t0)
         if t1 - t_start >= seconds and len(times) >= need:
             break
     del out
-    window = window_stats(times, batch, t1 - t_start)
-    window_s, images = window["seconds"], window["images"]
+    window = window_stats(times, work.items, t1 - t_start)
+    window_s, items = window["seconds"], window["images"]
     host = host_state(t_start, t_cpu, stat0)
     peak = int(torch.cuda.max_memory_allocated(dev)) if gpu else 0
     name, power = card_info(dev) if gpu else ("cpu", None)
     log(f"{wl['name']} seed {seed}: setup {setup_s:.3f} s, "
-        f"{len(times)} batches of {batch} in {window_s:.3f} s: "
-        f"{window['images_per_s']:.3f} img/s, p95 "
+        f"{len(times)} steps of {work.items} in {window_s:.3f} s: "
+        f"{window['images_per_s']:.3f} items/s, p95 "
         f"{window['batch_ms_p95']:.3f} ms, median "
         f"{window['batch_ms_median']:.3f} ms; peak {peak} B; {name}, "
         f"power limit {power}")
@@ -356,8 +303,6 @@ def run(bench: dict, wl: dict, config: dict, traffic: dict, seed: int,
                 "count": 1, "memory_peak_bytes": peak,
                 "power_limit": power}
     breakdown = None
-    judged = [({n: t.to(dev) for n, t in pool.batch(order[i]).items()}, o)
-              for i, o in zip(judged_pos, judged)]
     wanted = cell_metrics(bench, wl, trace)
     if not trace:
         values = {"images_per_s": window["images_per_s"],
@@ -367,36 +312,23 @@ def run(bench: dict, wl: dict, config: dict, traffic: dict, seed: int,
             result_metrics[m["name"]] = {"value": values[m["name"]],
                                          "unit": m["unit"]}
     else:
-        from . import profile, stages
+        from . import profile
 
-        stretch = [pool.batch(order[i])
-                   for i in range(min(TRACE_BATCHES, len(times)))]
+        n = min(TRACE_BATCHES, len(times))
         prof = {}
         if gpu:
-            def pstep(i):
-                o = step(stretch[i])
-                o["hp1"].cpu(), o["hp2"].cpu()
-
-            prof = profile.profile_stretch(pstep, len(stretch), dev)
-            prof["paced_s"] = sum(times[:len(stretch)])
+            prof = profile.profile_stretch(work.step, n, dev)
+            prof["paced_s"] = sum(times[:n])
             dev_info["busy_s"] = prof["busy_s"]
             dev_info["window_s"] = prof["window_s"]
             breakdown = {"device_ops": prof["device_ops"],
                          "idle_gaps": prof["idle_gaps"]}
-            log(f"profiled stretch: {len(stretch)} batches in "
-                f"{prof['window_s']:.4f} s (device busy "
-                f"{prof['busy_s']:.4f} s), the same batches in the "
-                f"window {prof['paced_s']:.4f} s; with host ops traced "
+            log(f"profiled stretch: {n} steps in {prof['window_s']:.4f} s "
+                f"(device busy {prof['busy_s']:.4f} s), the same steps in "
+                f"the window {prof['paced_s']:.4f} s; with host ops traced "
                 f"{prof['named_window_s']:.4f} s")
-        stage_ms: dict = {}
-        syncs = []
-        for hb in stretch:
-            t, n = stages.stage_pass(hb, model, mean, cfg)
-            for s_, v in t.items():
-                stage_ms.setdefault(s_, []).append(v)
-            syncs.append(n)
-        tr = Trace(config, traffic, dev, window, stage_ms, syncs, prof,
-                   judged)
+        tr = Trace(config, traffic, dev, window, prof, work.step, n, times,
+                   work.traced(kept, n))
         for m in wanted:
             v = reader(m["name"], root)(tr)
             if v is not None:
@@ -407,20 +339,15 @@ def run(bench: dict, wl: dict, config: dict, traffic: dict, seed: int,
             for k, v in result_metrics.items()))
 
     # the program's state goes before the reference runs
-    del model, pipe, step
+    work.free()
     if gpu:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
-    from .reference.pipeline import Reference
-
-    ref = Reference(config, params, mean)
-    numbers, _ = judge.judge(ref, [b for b, _ in judged],
-                             [o for _, o in judged],
-                             traffic["judge"]["check"], width, height)
+    numbers = work.judge(kept)
     limits = {k: traffic["judge"]["limits"][k] for k in numbers}
-    correct = judge.verdict(numbers, limits)
+    correct = verdict(numbers, limits)
 
-    record = {"correct": correct, "attempted": images, "failed": 0,
+    record = {"correct": correct, "attempted": items, "failed": 0,
               "metrics": result_metrics, "device": dev_info}
     if breakdown is not None:
         record["breakdown"] = breakdown

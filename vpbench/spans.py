@@ -1,17 +1,17 @@
-"""The port's own spans and counters over the window's first batches.
+"""The port's own spans and counters over the window's first steps.
 
 One more pass over the traced stretch (the window's first
-``run.TRACE_BATCHES`` batches, through the same step as the timed loop:
-the copy, the entry call, ``hp1``/``hp2`` read back) inside the port's
-``utils.profiling.trace`` session, which records the device's activity
-and only the program's ``record_function`` spans on the host. No
-synchronize is added but the session's own at its end.
+``run.TRACE_BATCHES`` steps, through the job's own step as the timed
+loop ran it: for serving, the copy, the entry call, ``hp1``/``hp2`` read
+back) inside the port's ``utils.profiling.trace`` session, which records
+the device's activity and only the program's ``record_function`` spans
+on the host. No synchronize is added but the session's own at its end.
 
-``vpbench/run.py`` hands the readers the ``Trace`` alone; the pass takes
-the stretch, the step and the window's batch times from the frame of
-``run.run`` that called the reader, runs once per traced run, and keeps
-its numbers on the ``Trace`` for the other readers. A program without
-the port's tracing (``profiling.Record``), or a run off the card, gives
+``vpbench/run.py`` hands the readers the ``Trace``, which carries the
+stretch (``stretch_step``, ``stretch_steps``) and the window's step
+times (``times``); the pass runs once per traced run, and keeps its
+numbers on the ``Trace`` for the other readers. A program without the
+port's tracing (``profiling.Record``), or a run off the card, gives
 nothing to read: the readers then return None.
 
 Each number is the median over the stretch's batches of the per-batch
@@ -20,7 +20,6 @@ value in the session's record (``profiling.Record.batches``).
 
 from __future__ import annotations
 
-import os
 import statistics
 import sys
 
@@ -66,17 +65,6 @@ def summarize(rec) -> dict | None:
     return out
 
 
-def _run_frame_locals():
-    """The locals of the ``vpbench/run.py`` ``run`` call up the stack."""
-    f = sys._getframe(1)
-    tail = os.path.join("vpbench", "run.py")
-    while f is not None:
-        if f.f_code.co_name == "run" and f.f_code.co_filename.endswith(tail):
-            return f.f_locals
-        f = f.f_back
-    return None
-
-
 def _pass(trace) -> dict | None:
     if not getattr(trace, "on_card", False):
         return None
@@ -85,17 +73,14 @@ def _pass(trace) -> dict | None:
     if not hasattr(profiling, "Record"):
         log("spans: the program records no spans")
         return None
-    run = _run_frame_locals()
-    if run is None or "pstep" not in run:
-        return None
-    stretch, pstep, times = run["stretch"], run["pstep"], run["times"]
+    n = trace.stretch_steps
     with profiling.trace() as rec:
-        for i in range(len(stretch)):
-            pstep(i)
+        for i in range(n):
+            trace.stretch_step(i)
     out = summarize(rec)
     if out is None:
         return None
-    out["paced_s"] = sum(times[:len(stretch)])
+    out["paced_s"] = sum(trace.times[:n])
     log("spans: " + "; ".join(
         f"{k} span {out[f'{k}_span_ms']:.3f} busy {out[f'{k}_busy_ms']:.3f}"
         f" idle {out[f'{k}_idle_ms']:.3f} ms" for k in LAYERS)

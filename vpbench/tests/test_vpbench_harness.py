@@ -85,9 +85,11 @@ def test_step_mfu_and_idle_share_readers():
 
 
 def test_stage_and_sync_readers_take_medians():
-    tr = run.Trace({}, {}, torch.device("cpu"), {},
-                   {"em": [0.1, 0.3, 0.2], "render": [0.001]}, [80, 86, 83],
-                   {}, [({"l": None}, None)])
+    serve = run.job("serve")
+    tr = run.Trace({}, {}, torch.device("cpu"), {}, {}, None, 0, [],
+                   serve.Traced({"em": [0.1, 0.3, 0.2], "render": [0.001]},
+                                [80, 86, 83], [({"l": None}, None)],
+                                torch.device("cpu")))
     assert run.reader("em_ms")(tr) == pytest.approx(200.0)
     assert run.reader("render_ms")(tr) == pytest.approx(1.0)
     assert run.reader("detector_ms")(tr) is None

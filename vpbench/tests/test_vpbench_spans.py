@@ -86,3 +86,23 @@ def test_nothing_to_read_off_the_card_or_without_spans(monkeypatch):
     tr = SimpleNamespace(on_card=True)
     assert run.reader("em_span_ms")(tr) is None
     assert tr._spans_pass is None
+
+
+def test_the_pass_runs_the_stretch_the_trace_carries(monkeypatch):
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def session():
+        yield _record()
+
+    monkeypatch.setattr(profiling, "trace", session)
+    sent = []
+    tr = run.Trace({}, {}, torch.device("cuda"), {}, {}, sent.append, 3,
+                   [0.5, 0.25, 0.125, 4.0])
+    assert run.reader("em_trips")(tr) == 2
+    assert sent == [0, 1, 2]
+    assert tr._spans_pass["paced_s"] == pytest.approx(0.875)
+    # read once: the other readers take the same pass
+    assert run.reader("em_host_reads")(tr) == 7 and sent == [0, 1, 2]
