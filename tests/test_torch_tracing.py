@@ -206,6 +206,17 @@ HOST = [("vp.session", 0, 1000), ("vp.batch", 100, 900),
         ("vp.em", 400, 800), ("vp.em.iteration", 450, 500)]
 
 
+@pytest.mark.parametrize("name,layer", [
+    ("vp.detector", "vp.detector"), ("vp.detector.ccl", "vp.detector"),
+    ("vp.em.iteration", "vp.em"), ("vp.emx", "outside"),
+    ("vp.batch", "outside"), ("vp.train", "outside"),
+    ("vp.train.update", "vp.train.update"),
+    ("vp.train.update.foreach", "vp.train.update"),
+    ("vp.train.input", "vp.train.input")])
+def test_a_span_belongs_to_the_longest_layer_it_names(name, layer):
+    assert profiling._layer(name) == layer
+
+
 def test_idle_is_split_exactly_by_the_spans_it_crosses():
     # kernels at 250-300, 420-440, 600-650: idle 0-250 (outside to 100,
     # then the detector), 300-420 crossing detector -> em, 440-600 in

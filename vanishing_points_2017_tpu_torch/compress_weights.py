@@ -63,11 +63,10 @@ def main(argv: list[str] | None = None) -> int:
         state = train.init_state(fac, base_lr=args.lr)
         t0, running = time.time(), []
         for step in range(args.steps):
-            imgs, labels = train.make_batch(rng_np, args.batch, mean,
-                                            device=dev)
-            loss = train.train_step(state, imgs, labels, train.step_generator(
-                args.seed + 1, step, dev))
-            running.append(float(loss))
+            lines, lmask, labels = train.draw_batch(rng_np, args.batch)
+            out = train.device_step(state, lines, lmask, labels, mean,
+                                    args.seed + 1)
+            running.append(float(out.loss))
             if (step + 1) % 200 == 0:
                 rate = 200 * args.batch / (time.time() - t0)
                 print(f"step {step + 1}  loss {np.mean(running):.4f}  "

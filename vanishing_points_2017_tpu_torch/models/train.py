@@ -12,9 +12,20 @@ because ``torch.optim.SGD`` keeps ``g`` in its momentum where Caffe keeps
     theta <- theta + V
 
 The network trains in bfloat16 products with float32 parameters, as the
-JAX step does. Training batches are synthetic: scenes and labels from
-``models/synth.py`` on the host, images rendered by ``ops/sphere`` (the
-CUDA kernel K2 on a GPU).
+JAX step does. Training batches are synthetic, in two parts:
+
+* host drawing (:func:`draw_batch`): scenes and labels from
+  ``models/synth.py`` on the host, as padded lines, their mask and the
+  20 x 20 labels;
+* the device step (:func:`device_step`): that batch copied in, rendered
+  by ``ops/sphere`` (the CUDA kernel K2 on a GPU), floor(. * 255) less
+  the mean, the dropout masks drawn from :func:`step_generator`, and
+  :func:`train_step`, all under one ``vp.batch`` root span with the
+  spans ``vp.train.input``, ``vp.train.forward``, ``vp.train.backward``
+  and ``vp.train.update`` (``utils/profiling.py``).
+
+:func:`make_batch` is the two halves of the input alone (drawing and
+rendering, no step), for the mean image and the tests.
 
 On a dp x tp mesh (``parallel/mesh.py``; the JAX step is the same program
 under a ``Mesh``) a state made with ``init_state(..., mesh=)`` holds this
@@ -37,6 +48,7 @@ from ..device import require_device
 from ..ops import sphere as sph
 from ..parallel import mesh as pmesh
 from ..parallel import tp as ptp
+from ..utils import profiling
 from . import cnn, synth
 
 BASE_LR = 1e-4
@@ -155,39 +167,38 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     params = state.model.params()
     names = [(n, k) for n, d in params.items() for k in d]
     with state.model.numerics():
-        loss = sigmoid_xent(state.model.logits(images, keep), labels)
-        flat = torch.autograd.grad(loss, [params[n][k] for n, k in names])
-    loss = loss.detach()
-    if mesh is not None and mesh.dp_group is not None:
-        # one all-reduce of every gradient and the loss: their dp means
-        buf = pmesh.all_reduce(torch.cat([g.reshape(-1) for g in flat]
-                                         + [loss.reshape(1)]),
-                               mesh.dp_group) / dp
-        flat = [b.view_as(g) for b, g in zip(
-            torch.split(buf, [g.numel() for g in flat] + [1]), flat)]
-        loss = buf[-1]
+        with profiling.span("vp.train.forward"):
+            loss = sigmoid_xent(state.model.logits(images, keep), labels)
+        with profiling.span("vp.train.backward"):
+            flat = torch.autograd.grad(loss,
+                                       [params[n][k] for n, k in names])
+            loss = loss.detach()
+            if mesh is not None and mesh.dp_group is not None:
+                # one all-reduce of every gradient and the loss: their dp
+                # means
+                buf = pmesh.all_reduce(torch.cat(
+                    [g.reshape(-1) for g in flat] + [loss.reshape(1)]),
+                    mesh.dp_group) / dp
+                flat = [b.view_as(g) for b, g in zip(
+                    torch.split(buf, [g.numel() for g in flat] + [1]), flat)]
+                loss = buf[-1]
     grads: dict = {}
     for (n, k), g in zip(names, flat):
         grads.setdefault(n, {})[k] = g
-    sgd_update(params, grads, state.momentum, state.step, state.base_lr,
-               state.lr_stepsize)
+    with profiling.span("vp.train.update"):
+        sgd_update(params, grads, state.momentum, state.step, state.base_lr,
+                   state.lr_stepsize)
     state.step += 1
     return loss
 
 
-def make_batch(rng_np: np.random.Generator, batch: int,
-               mean: torch.Tensor | None = None, n_pad: int = 512,
-               size: int = cnn.INPUT_SIZE,
-               device: str | torch.device = "cuda"):
-    """A synthetic training batch on ``device`` (the GPU unless the caller
-    names another): images (B, 1, S, S) float32, floor(render * 255) less
-    ``mean``, and labels (B, 20, 20).
-
-    Scenes and labels are drawn on the host from ``rng_np`` in the JAX
-    package's order (scenes past ``n_pad`` lines are cut to their first
-    ``n_pad``); the render is ``ops.sphere.sphere_render``, so on a GPU it
-    is the kernel K2."""
-    device = require_device(device)
+def draw_batch(rng_np: np.random.Generator, batch: int,
+               n_pad: int = 512) -> tuple:
+    """The host half of a synthetic training batch: ``batch`` scenes and
+    labels drawn from ``rng_np`` in the JAX package's order (scenes past
+    ``n_pad`` lines cut to their first ``n_pad``) -> CPU tensors (lines
+    (B, n_pad, 3) float32, their mask (B, n_pad) bool, labels (B, 20, 20)
+    float32)."""
     ls = np.zeros((batch, n_pad, 3), np.float32)
     masks = np.zeros((batch, n_pad), bool)
     labels = []
@@ -197,9 +208,69 @@ def make_batch(rng_np: np.random.Generator, batch: int,
         ls[i, :n] = scene.lines[:n]
         masks[i, :n] = True
         labels.append(synth.vp_grid_label(scene.vps).astype(np.float32))
-    img = sph.sphere_render(torch.from_numpy(ls).to(device),
-                            torch.from_numpy(masks).to(device), size=size)
-    img = torch.floor(img * 255.0)
+    return (torch.from_numpy(ls), torch.from_numpy(masks),
+            torch.from_numpy(np.stack(labels)))
+
+
+def render_images(lines: torch.Tensor, lmask: torch.Tensor,
+                  mean: torch.Tensor | None = None,
+                  size: int = cnn.INPUT_SIZE) -> torch.Tensor:
+    """Lines on the device -> the network's input (B, 1, S, S) float32:
+    floor(render * 255) less ``mean``; the render is
+    ``ops.sphere.sphere_render``, so on a GPU it is the kernel K2."""
+    img = torch.floor(sph.sphere_render(lines, lmask, size=size) * 255.0)
     if mean is not None:
         img = img - mean[None]
-    return img[:, None], torch.from_numpy(np.stack(labels)).to(device)
+    return img[:, None]
+
+
+def make_batch(rng_np: np.random.Generator, batch: int,
+               mean: torch.Tensor | None = None, n_pad: int = 512,
+               size: int = cnn.INPUT_SIZE,
+               device: str | torch.device = "cuda"):
+    """A synthetic training batch on ``device`` (the GPU unless the caller
+    names another): images (B, 1, S, S) float32, floor(render * 255) less
+    ``mean``, and labels (B, 20, 20): :func:`draw_batch` and
+    :func:`render_images`, with no step."""
+    device = require_device(device)
+    ls, masks, labels = draw_batch(rng_np, batch, n_pad)
+    img = render_images(ls.to(device), masks.to(device), mean, size)
+    return img, labels.to(device)
+
+
+@dataclasses.dataclass
+class StepOut:
+    """What :func:`device_step` gives back: the loss (a float32 scalar
+    tensor on the device, before the update), the network's input
+    (B, 1, S, S) and the dropout keep masks of fc6 and fc7 it used."""
+    loss: torch.Tensor
+    images: torch.Tensor
+    keep: list
+
+
+def device_step(state: TrainState, lines: torch.Tensor, lmask: torch.Tensor,
+                labels: torch.Tensor, mean: torch.Tensor, seed: int,
+                size: int = cnn.INPUT_SIZE) -> StepOut:
+    """One training step on a batch from :func:`draw_batch` (host or
+    device tensors), in place on ``state``, on the state's device, under
+    one ``vp.batch`` root span.
+
+    ``vp.train.input``: the batch copied in (without blocking: pinned
+    host memory overlaps), rendered and less ``mean``
+    (:func:`render_images`), and the dropout masks drawn from
+    ``step_generator(seed, state.step)``; then :func:`train_step`
+    (``vp.train.forward``, ``vp.train.backward``, ``vp.train.update``).
+    Equal, bit for bit, to :func:`make_batch` followed by
+    :func:`train_step` with that generator. Nothing here reads from the
+    device: the caller reads the loss."""
+    dev = state.model.layers["conv1"].w.device
+    with profiling.batch():
+        with profiling.span("vp.train.input"):
+            images = render_images(lines.to(dev, non_blocking=True),
+                                   lmask.to(dev, non_blocking=True), mean,
+                                   size)
+            labels = labels.to(dev, non_blocking=True)
+            keep = dropout_masks(state.model, images.shape[0],
+                                 step_generator(seed, state.step, dev))
+        loss = train_step(state, images, labels, keep=keep)
+    return StepOut(loss, images, keep)

@@ -1,10 +1,12 @@
 """Train the VP-grid CNN on synthetic Manhattan scenes (the root
 ``train_cnn.py`` of the JAX package, on a GPU).
 
-Scenes are drawn on the host and rendered on the card by the sphere
-kernel; the solver is Caffe's SGD (``models/train.py``: base_lr 1e-4,
-x0.1 every 200k steps, momentum 0.9, weight decay 5e-4, batch 5 by
-default). The mean image is estimated from ``--mean_samples`` rendered
+Each step's scenes, lines and labels are drawn on the host
+(``models/train.draw_batch``); the device step
+(``models/train.device_step``) copies them in, renders them on the card
+by the sphere kernel, subtracts the mean, draws the dropout masks and
+runs Caffe's SGD (``models/train.py``: base_lr 1e-4, x0.1 every 200k
+steps, momentum 0.9, weight decay 5e-4, batch 5 by default). The mean image is estimated from ``--mean_samples`` rendered
 images unless ``--mean_out`` exists. Checkpoints (``.npz``, read by both
 packages) are written every ``--snapshot`` steps and at the end to
 ``--out``; ``--resume`` takes the parameters and step of one and starts
@@ -85,10 +87,10 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.time()
     running = []
     for step in range(state.step, args.steps):
-        imgs, labels = train.make_batch(rng_np, args.batch, mean, device=dev)
-        loss = train.train_step(state, imgs, labels, train.step_generator(
-            args.seed + 1, step, dev))
-        running.append(float(loss))
+        lines, lmask, labels = train.draw_batch(rng_np, args.batch)
+        out = train.device_step(state, lines, lmask, labels, mean,
+                                args.seed + 1)
+        running.append(float(out.loss))
         if (step + 1) % args.display == 0:
             rate = args.display * args.batch / (time.time() - t0)
             lr = train.learning_rate(state.step, state.base_lr,

@@ -31,6 +31,14 @@ The spans and the counters, and what reads them
 | ``vp.horizon`` | ``em.horizon.calculate_horizon_and_ortho_vp``, per chunk | ``horizon_span_ms`` |
 | counter ``em.host_reads`` | ``em.reads.host_bool``: every device-to-host read of the EM | ``em_host_reads`` |
 | counter ``em.graph_trips`` | ``em.em._Graph.replay``: the EM's trips run as one CUDA graph replay | none yet |
+| ``vp.batch`` | ``models.train.device_step`` | the training step each span, launch and idle interval belongs to |
+| ``vp.train.input`` | ``models.train.device_step``: the copy in, K2, floor and mean, the dropout masks | ``train_input_span_ms`` |
+| ``vp.train.forward`` | ``models.train.train_step``: ``VPNet.logits`` and the loss | ``train_forward_span_ms`` |
+| ``vp.train.backward`` | ``models.train.train_step``: ``torch.autograd.grad`` (and the dp all-reduce on a mesh) | ``train_backward_span_ms`` |
+| ``vp.train.update`` | ``models.train.train_step``: ``sgd_update`` | ``train_update_span_ms``, ``train_update_roofline`` |
+
+The training step's device idle, over all of its layers and ``outside``,
+is ``train_idle_ms``.
 
 Device idle outside every layer span (the copy in, the readback, the
 caller's loop) is ``outside_idle_ms``. A span never synchronizes and
@@ -49,8 +57,11 @@ import os
 
 import torch
 
-# the five layers; a span's layer is its name's first two parts
-LAYERS = ("vp.detector", "vp.render", "vp.cnn", "vp.em", "vp.horizon")
+# the layers: serving's five and the training step's four; a span's layer
+# is the longest of them that its name is or starts with (and a ".")
+LAYERS = ("vp.detector", "vp.render", "vp.cnn", "vp.em", "vp.horizon",
+          "vp.train.input", "vp.train.forward", "vp.train.backward",
+          "vp.train.update")
 OUTSIDE = "outside"
 BATCH = "vp.batch"
 SESSION = "vp.session"  # bounds the session's stretch on kineto's clock
@@ -191,8 +202,9 @@ def events_of(kineto_events) -> list:
 
 
 def _layer(name: str) -> str:
-    top = ".".join(name.split(".")[:2])
-    return top if top in LAYERS else OUTSIDE
+    inside = [lay for lay in LAYERS
+              if name == lay or name.startswith(lay + ".")]
+    return max(inside, key=len) if inside else OUTSIDE
 
 
 def _innermost(spans: list) -> tuple[list, list, list]:

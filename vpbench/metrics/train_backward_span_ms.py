@@ -1,0 +1,10 @@
+"""train_backward_span_ms: the host's milliseconds per training step inside
+the port's ``vp.train.backward`` span: ``torch.autograd.grad`` (``models/train.train_step``);
+the median over the window's first steps, run again under the port's
+trace session by the training job (``vpbench/jobs/train.py``)."""
+
+
+def read(trace):
+    if not trace.on_card:
+        return None
+    return trace.train_span("backward_span_ms")
