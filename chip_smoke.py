@@ -2,8 +2,10 @@
 
 Builds the CUDA kernels and the host LSD, holds each kernel against its
 plain PyTorch twin on the card (K2 also at the host path's line buckets,
-N = 1024 and 2048), and drives every path of the port, each checked
-against the JAX package's committed outputs. The pipeline and the weights
+N = 1024 and 2048; K3, the EM split's 2-clustering, bit for bit on every
+split of one batch of the benchmark cell ``sd640_scenes_b32``, one launch
+per split, timed on the first), and drives every path of the port, each
+checked against the JAX package's committed outputs. The pipeline and the weights
 are made without a device argument, so the entry points' default (the
 GPU) is what runs:
 
@@ -136,8 +138,9 @@ GPU) is what runs:
   inside ``utils.profiling.trace()``, every kernel, copy and set charged
   to a layer span or to ``outside`` by its launch call, the EM's own count
   of its host reads (``em.host_reads``) equal to the truth-value reads on
-  the card, outputs equal to the untraced call's; its numbers in a
-  ``tracing b32`` line and a ``{"tracing": ...}`` JSON line.
+  the card, the EM's count of K3's launches (``em.cluster_launches``)
+  equal to its splits, outputs equal to the untraced call's; its numbers
+  in a ``tracing b32`` line and a ``{"tracing": ...}`` JSON line.
 
     python3 chip_smoke.py
 
@@ -164,7 +167,9 @@ the twin's at B = 4, ``bound_ms_by_wide_grid`` the bound) and
 path's grid (ms over 8 half passes x H rows), and ``bound_ms`` is the
 least time the card could take for the timed call's work (bytes over
 the memory rate or operations over the float32 rate, whichever is
-larger).
+larger); K3's ``launches_per_cell_batch`` is its launches on the cell
+batch, ``chain_steps`` the timed call's longest chain of dependent merge
+steps and ``us_per_step`` its time over that chain.
 """
 
 from __future__ import annotations
@@ -313,6 +318,9 @@ OPTIONS_SCRIPT = os.path.join(ROOT, "scripts",
 OPTIONS_REFERENCE = os.path.join(ROOT, "assets", "examples",
                                  "jax_reference_options.npz")
 OPTION_PASSES, OPTION_REPEATS, OPTION_ROUNDS = (2, 16), 3, 8
+# the cluster phase: K3 on the split inputs of one batch of the benchmark
+# cell CELL, drawn by its serving job from CELL_SEED; K3's timed calls
+CELL, CELL_SEED, K3_ITERS = "sd640_scenes_b32", 3320002101, 20
 
 
 def log(msg: str) -> None:
@@ -335,6 +343,12 @@ def count(kernel_list, total: dict, path: str, need) -> None:
                                  "run")
     for src, n in got.items():
         total[src] = total.get(src, 0) + n
+
+
+def image_kernels(kernel_list) -> list:
+    """K1 and K2, which every image path launches; K3 runs only where the
+    EM splits."""
+    return [k for k in kernel_list if k.source != "cluster_two.cu"]
 
 
 def checker(failed: list):
@@ -715,7 +729,7 @@ def training_phase(dev, card: str, kernels_all, sph_k, total: dict,
             res = Pipeline(params, cmean).process_images(grays)
             torch.cuda.synchronize()
             count(kernels_all, total, "compressed-weights pipeline",
-                  need=kernels_all)
+                  need=image_kernels(kernels_all))
             fin = bool(torch.isfinite(res["hp1"]).all()
                        and torch.isfinite(res["hp2"]).all())
             log(f"pipeline with the compressed weights: horizons finite "
@@ -1557,7 +1571,8 @@ def wide_grid_phase(dev, card: str, pipe, kernels_all, total: dict, ld,
     reset(kernels_all)
     out = pipe.process_images([frame])
     torch.cuda.synchronize()
-    count(kernels_all, total, "1280x720 frame", need=kernels_all)
+    count(kernels_all, total, "1280x720 frame",
+          need=image_kernels(kernels_all))
     fin = bool(torch.isfinite(out["hp1"]).all()
                and torch.isfinite(out["hp2"]).all())
     log(f"1280x720 frame through process_images: {int(out['segment_mask'][0].sum())} "
@@ -1579,7 +1594,8 @@ def wide_grid_phase(dev, card: str, pipe, kernels_all, total: dict, ld,
             f"{time.perf_counter() - t0:.2f} s, first batch included "
             f"({card})")
     per_hd = {k.source: k.launches for k in kernels_all}
-    count(kernels_all, total, "HD gate", need=kernels_all)
+    count(kernels_all, total, "HD gate",
+          need=image_kernels(kernels_all))
     far, i = [], 0
     for (width, height), outs in runs.items():
         for o in outs:
@@ -1724,7 +1740,8 @@ def tools_phase(card: str, pipe, kernels_all, total: dict,
     log(f"profiles: {time.perf_counter() - t0:.1f} s")
 
     phase = {k.source: k.launches for k in kernels_all}
-    count(kernels_all, total, "tools", need=kernels_all)
+    count(kernels_all, total, "tools",
+          need=image_kernels(kernels_all))
     if failed:
         raise AssertionError(f"tools phase: {failed}")
     return phase
@@ -1745,7 +1762,8 @@ def bench_phase(card: str, pipe, kernels_all, total: dict) -> dict:
                                      device="cuda")
     torch.cuda.synchronize()
     launches = {k.source: k.launches for k in kernels_all}
-    count(kernels_all, total, "bench", need=kernels_all)
+    count(kernels_all, total, "bench",
+          need=image_kernels(kernels_all))
     log(f"bench record: {json.dumps(record)}")
     failed: list = []
     check = checker(failed)
@@ -1822,6 +1840,96 @@ def _matched_gap(a, b) -> float:
         worst = max(worst, max(gaps[:len(gaps) - max(0, len(x) - len(y))],
                                default=0.0))
     return worst
+
+
+def cell_batch(dev, seed: int = CELL_SEED):
+    """The first batch of the benchmark cell :data:`CELL`'s pool as its
+    serving job draws it from ``seed``, and the job's entry call on the
+    configuration's weights -> (step, batch): ``step(batch)`` runs it."""
+    from vpbench import scenes, weights
+    from vpbench.jobs import serve
+    from vpbench.run import load_cell
+
+    from vanishing_points_2017_tpu_torch.pipeline import Pipeline
+
+    _, _, config, traffic = load_cell(CELL, ROOT)
+    cfg = serve.pipeline_config(config)
+    params, mean = weights.load(config, ROOT, dev)
+    pipe = Pipeline(params, mean, cfg, device=dev)
+    pool = scenes.draw_pool(dict(traffic, pool=1), config["image"]["width"],
+                            config["image"]["height"], seed, dev)
+    return serve.make_step(pipe.model, mean, cfg, dev), pool.batch(0)
+
+
+@contextlib.contextmanager
+def recording(module, name: str, clone: bool = True):
+    """Inside the block, ``module.name`` also keeps each call's arguments,
+    tensors cloned (as they are with ``clone=False``, which launches
+    nothing); yields the list of those calls."""
+    import torch
+
+    real, calls = getattr(module, name), []
+
+    def recorded(*args, **kwargs):
+        calls.append(tuple(a.clone() if clone and isinstance(a, torch.Tensor)
+                           else a for a in args))
+        return real(*args, **kwargs)
+
+    setattr(module, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def cluster_phase(card: str, dev, clu_k, total: dict) -> dict:
+    """K3 (``csrc/cluster_two.cu``) against its plain twin on the split
+    inputs of one batch of the cell :data:`CELL`: the batch's K3 launches
+    (one per split), each split's clusters bit for bit, then K3's time on
+    the batch's first split beside the twin's and its bound. -> the
+    kernel record."""
+    import torch
+
+    from vanishing_points_2017_tpu_torch.em import cluster
+
+    step, batch = cell_batch(dev)
+    reset([clu_k])
+    with recording(cluster, "agglomerative_two") as splits:
+        step(batch)["hp1"].cpu()
+    per_batch = clu_k.launches
+    count([clu_k], total, f"{CELL} batch", need=(clu_k,))
+    if per_batch != len(splits):
+        raise AssertionError(f"K3: {per_batch} launches for {len(splits)} "
+                             "splits")
+    for n, (dist, active) in enumerate(splits):
+        got = cluster.agglomerative_two(dist, active)
+        want = cluster.agglomerative_two_ref(dist, active)
+        torch.cuda.synchronize()
+        n_bad = int((got != want).sum())
+        log(f"K3 split {n}: {tuple(dist.shape)}, active items per image "
+            f"{active.sum(1).tolist()}; {n_bad} items differ from the twin")
+        if n_bad:
+            raise AssertionError(f"K3 differs from its twin on split {n}")
+    dist, active = splits[0]
+    na = active.sum(1)
+    chain = int((na - 2).clamp(min=0).max())
+    k3_ms = cuda_ms(lambda: cluster.agglomerative_two(dist, active),
+                    K3_ITERS)
+    k3_plain = cuda_ms(lambda: cluster.agglomerative_two_ref(dist, active),
+                       3)
+    # the active items' distances read once, the mask read and the result
+    # written once; each merge step compares the remaining pairs
+    n_ops = float(sum(m * m * (m - 2) for m in na.tolist() if m > 2))
+    k3_bound, k3_by = bound(4 * float((na * na).sum()) + 2 * active.numel(),
+                            n_ops)
+    log(f"K3 time {tuple(dist.shape)}: kernel {k3_ms:.4f} ms, twin "
+        f"{k3_plain:.3f} ms, bound {k3_bound:.5f} ms ({k3_by}); chain of "
+        f"{chain} dependent merge steps, {k3_ms * 1e3 / max(chain, 1):.2f} "
+        f"us a step ({card})")
+    return dict(max_abs_err=0.0, ms=k3_ms, plain_ms=k3_plain,
+                bound_ms=k3_bound, bound_by=k3_by, chain_steps=chain,
+                us_per_step=k3_ms * 1e3 / max(chain, 1),
+                launches_per_cell_batch=per_batch)
 
 
 def em_trajectory_phase(card: str, pipe, kernels_all, total: dict) -> dict:
@@ -1980,7 +2088,8 @@ def em_trajectory_phase(card: str, pipe, kernels_all, total: dict) -> dict:
     log(f"em-trajectory traces: {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     phase = {k.source: k.launches for k in kernels_all}
-    count(kernels_all, total, "em-trajectory", need=kernels_all)
+    count(kernels_all, total, "em-trajectory",
+          need=image_kernels(kernels_all))
     if failed:
         raise AssertionError(f"em-trajectory phase: {failed}")
     return phase
@@ -2027,11 +2136,14 @@ def tracing_phase(pipe, images) -> dict:
     every kernel, copy and set of the session is charged to a layer span
     or to ``outside``; the EM's own count of its host reads equals
     ``bench.host_reads``' count of the truth-value reads on the card over
-    the whole call; the outputs equal the untraced call's. -> the batch's
-    span, busy and idle ms per layer, EM trips, launches and host reads."""
+    the whole call; the EM's count of K3's launches
+    (``em.cluster_launches``) equals its splits; the outputs equal the
+    untraced call's. -> the batch's span, busy and idle ms per layer, EM
+    trips, launches, host reads and K3 launches."""
     import torch
 
     from vanishing_points_2017_tpu_torch import bench
+    from vanishing_points_2017_tpu_torch.em import em as em_mod
     from vanishing_points_2017_tpu_torch.pipeline import device_pipeline_full
     from vanishing_points_2017_tpu_torch.utils import profiling
 
@@ -2040,7 +2152,8 @@ def tracing_phase(pipe, images) -> dict:
 
     plain = run()
     torch.cuda.synchronize()
-    with bench.host_reads(images.device) as n, profiling.trace() as rec:
+    with bench.host_reads(images.device) as n, profiling.trace() as rec, \
+            recording(em_mod, "_split_best_vp", clone=False) as splits:
         out = run()
     faults = []
     if len(rec.batches) != 1:
@@ -2056,6 +2169,9 @@ def tracing_phase(pipe, images) -> dict:
     reads = b["counters"].get("em.host_reads", 0)
     if reads != n["n"] or not reads:
         faults.append(f"em.host_reads {reads}, truth-value reads {n['n']}")
+    k3 = b["counters"].get("em.cluster_launches", 0)
+    if k3 != len(splits):
+        faults.append(f"em.cluster_launches {k3}, splits {len(splits)}")
     differ = [k for k in plain if not identical(plain[k], out[k])]
     if differ:
         faults.append(f"outputs differ with tracing on: {differ}")
@@ -2065,7 +2181,7 @@ def tracing_phase(pipe, images) -> dict:
            "window_ms": rec.window_ms, "idle_ms": rec.idle_ms,
            "em_trips": b["spans"].get("vp.em.iteration", 0),
            "em_launches": b["launches"].get("vp.em", 0),
-           "em_host_reads": reads}
+           "em_host_reads": reads, "em_cluster_launches": k3}
     for layer in profiling.LAYERS + (profiling.OUTSIDE,):
         short = layer.split(".")[-1]
         if layer != profiling.OUTSIDE:
@@ -2229,7 +2345,8 @@ def options_phase(card: str, pipe, kernels_all, total: dict, ld) -> dict:
                 for k, v in row.items()))
     torch.cuda.synchronize()
     launches = {k.source: k.launches for k in kernels_all}
-    count(kernels_all, total, "options", need=kernels_all)
+    count(kernels_all, total, "options",
+          need=image_kernels(kernels_all))
     if failed:
         raise AssertionError(f"options phase: {failed}")
     return launches
@@ -2373,13 +2490,15 @@ def parallel_phase(dev, card: str, kernels_all, total: dict, params, mean,
         "their wall times are information only and say nothing about "
         f"scaling ({card})")
     sharded = {k.source: 0 for k in kernels_all}
+    needed = {k.source for k in image_kernels(kernels_all)}
 
     def tally(name: str, runs: list) -> None:
-        """Every rank must have launched both kernels in its run."""
+        """Every rank must have launched K1 and K2 in its run."""
         for r, run in enumerate(runs):
             for src, n in run["launches"].items():
                 sharded[src] += n
-                check(n >= 1, f"{name} rank {r}: {src} not launched")
+                check(n >= 1 or src not in needed,
+                      f"{name} rank {r}: {src} not launched")
         log(f"sharded {name}: launches {[run['launches'] for run in runs]}; "
             f"wall {max(run['wall_s'] for run in runs):.2f} s ({card})")
 
@@ -2478,7 +2597,8 @@ def parallel_phase(dev, card: str, kernels_all, total: dict, params, mean,
             launches = {k.source: k.launches for k in kernels_all}
             for src, n in launches.items():
                 sharded[src] += n
-                check(n >= 1, f"nccl rank: {src} not launched")
+                check(n >= 1 or src not in needed,
+                      f"nccl rank: {src} not launched")
             log(f"one nccl rank ({dist.get_backend()}): launches {launches}")
             equal_outputs(f"{dist.get_backend()} dp=1",
                           {k: v.cpu().numpy() for k, v in out.items()})
@@ -2528,7 +2648,7 @@ def main() -> int:
 
     # ---- build: the two kernels in parallel threads (each nvcc is its own
     # process), the host LSD and the JPEG entropy coder (g++) beside them
-    ccl_k, sph_k = kernels_all = kernels.all_kernels()
+    ccl_k, sph_k, clu_k = kernels_all = kernels.all_kernels()
     total: dict = {}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
@@ -2607,6 +2727,11 @@ def main() -> int:
                                     plain_ms=k2_plain, bound_ms=k2_bound,
                                     bound_by=k2_by)
 
+    # ---- K3: the EM split's 2-clustering vs its twin on a cell batch
+    t0 = time.perf_counter()
+    records["cluster_two"] = cluster_phase(card, dev, clu_k, total)
+    log(f"cluster phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- end to end on the 4 scenes through both kernels, with the entry
     # points' default device
     params, mean = load_params_and_mean()
@@ -2619,7 +2744,8 @@ def main() -> int:
     out = pipe.process_images(grays)
     torch.cuda.synchronize()
     per_batch = {k.source: k.launches for k in kernels_all}
-    count(kernels_all, total, "main-path", need=kernels_all)
+    count(kernels_all, total, "main-path",
+          need=image_kernels(kernels_all))
     for key in ("hp1", "hp2", "vp", "cnn_prediction", "counts"):
         if not bool(torch.isfinite(out[key].float()).all()):
             raise AssertionError(f"non-finite {key}")
@@ -2911,7 +3037,7 @@ def main() -> int:
         for k, v in traced.items()))
     log(json.dumps({"tracing": traced}))
 
-    # no single PyTorch call computes either function: library_ms is null
+    # no single PyTorch call computes any of the three: library_ms is null
     kernel_info = [
         dict(name="ccl_raster", route="cuda",
              source="vanishing_points_2017_tpu_torch/csrc/ccl_raster.cu",
@@ -2949,6 +3075,21 @@ def main() -> int:
              launches_em_trajectory=per_em[sph_k.source],
              launches_options=per_opt[sph_k.source],
              library_ms=None, **records["sphere_render"]),
+        dict(name="cluster_two", route="cuda",
+             source="vanishing_points_2017_tpu_torch/csrc/cluster_two.cu",
+             replaces=None, launches=total[clu_k.source],
+             launches_per_batch=per_batch[clu_k.source],
+             launches_per_train_step=per_step[clu_k.source],
+             launches_sharded=per_sharded[clu_k.source],
+             launches_bench=per_bench[clu_k.source],
+             launches_progressive=per_prog[clu_k.source],
+             launches_jpeg_forms=per_forms[clu_k.source],
+             launches_webp=per_webp[clu_k.source],
+             launches_tools=per_tools[clu_k.source],
+             launches_hd=per_hd[clu_k.source],
+             launches_em_trajectory=per_em[clu_k.source],
+             launches_options=per_opt[clu_k.source],
+             library_ms=None, **records["cluster_two"]),
     ]
     for k in kernel_info:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]

@@ -125,7 +125,8 @@ def test_bench_main_on_cpu(monkeypatch):
     assert bd["device_idle_note"]
     assert bd["flops_per_image"] == SHIPPED_FLOPS
     assert set(bd["stage_ms"]) == set(bench.STAGES)
-    assert bd["launches_per_batch"] == {"ccl_raster": 0, "sphere_render": 0}
+    assert bd["launches_per_batch"] == {"ccl_raster": 0, "sphere_render": 0,
+                                        "cluster_two": 0}
     assert rec["value"] == bd["spread"]["pipelined"]["median"] > 0
     assert set(seen) == set(bench.LOOPS)
     for loop in bench.LOOPS:

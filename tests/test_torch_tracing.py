@@ -352,3 +352,26 @@ def test_a_traced_batch_on_the_card():
     res = tracing_phase(pipe, imgs)
     assert res["em_host_reads"] > 0 and res["em_trips"] > 0
     assert res["em_launches"] > 0
+
+
+@pytest.mark.gpu
+def test_k3_launches_are_counted_per_split_on_the_card():
+    """A batch of the benchmark cell ``sd640_scenes_b32``, which splits,
+    under the trace session: the EM's count of K3's launches
+    (``em.cluster_launches``) equals its splits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import cell_batch, recording
+
+    step, batch = cell_batch(torch.device("cuda"))
+    with profiling.trace() as rec, \
+            recording(tem, "_split_best_vp", clone=False) as splits:
+        step(batch)["hp1"].cpu()
+    assert splits and len(rec.batches) == 1
+    assert rec.batches[0]["counters"].get("em.cluster_launches") == \
+        len(splits)

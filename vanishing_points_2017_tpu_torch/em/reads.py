@@ -1,6 +1,7 @@
-"""The EM's device-to-host reads: every loop condition the EM and its
-2-clustering read back goes through :func:`host_bool`, which counts it
-as ``em.host_reads`` inside a trace session (``utils/profiling.py``)."""
+"""The EM's device-to-host reads: every loop condition the EM and the
+2-clustering's plain twin read back goes through :func:`host_bool`, which
+counts it as ``em.host_reads`` inside a trace session
+(``utils/profiling.py``)."""
 
 from __future__ import annotations
 

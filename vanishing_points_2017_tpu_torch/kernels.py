@@ -158,6 +158,7 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 def all_kernels() -> list:
     """The kernels of the main path, in pipeline order."""
+    from .em.cluster import CLUSTER_KERNEL
     from .ops.lines_device import CCL_KERNEL
     from .ops.sphere import SPHERE_KERNEL
-    return [CCL_KERNEL, SPHERE_KERNEL]
+    return [CCL_KERNEL, SPHERE_KERNEL, CLUSTER_KERNEL]
