@@ -1882,6 +1882,30 @@ def recording(module, name: str, clone: bool = True):
         setattr(module, name, real)
 
 
+@contextlib.contextmanager
+def truth_value_reads(device_type: str):
+    """Count the host's reads of the truth value of a tensor on
+    ``device_type`` inside the block, from any thread, by patching
+    ``torch.Tensor.__bool__`` for the process: the witness the EM's own
+    count of its host reads is held to. Yields a dict whose ``"n"`` holds
+    the count."""
+    import torch
+
+    n = {"n": 0}
+    orig = torch.Tensor.__bool__
+
+    def counting(t):
+        if t.device.type == device_type:
+            n["n"] += 1
+        return orig(t)
+
+    torch.Tensor.__bool__ = counting
+    try:
+        yield n
+    finally:
+        torch.Tensor.__bool__ = orig
+
+
 def cluster_phase(card: str, dev, clu_k, total: dict) -> dict:
     """K3 (``csrc/cluster_two.cu``) against its plain twin on the split
     inputs of one batch of the cell :data:`CELL`: the batch's K3 launches
@@ -2135,14 +2159,13 @@ def tracing_phase(pipe, images) -> dict:
     session (``utils/profiling.py``) on the card, held to three things:
     every kernel, copy and set of the session is charged to a layer span
     or to ``outside``; the EM's own count of its host reads equals
-    ``bench.host_reads``' count of the truth-value reads on the card over
-    the whole call; the EM's count of K3's launches
+    :func:`truth_value_reads`' count of the truth-value reads on the card
+    over the whole call; the EM's count of K3's launches
     (``em.cluster_launches``) equals its splits; the outputs equal the
     untraced call's. -> the batch's span, busy and idle ms per layer, EM
     trips, launches, host reads and K3 launches."""
     import torch
 
-    from vanishing_points_2017_tpu_torch import bench
     from vanishing_points_2017_tpu_torch.em import em as em_mod
     from vanishing_points_2017_tpu_torch.pipeline import device_pipeline_full
     from vanishing_points_2017_tpu_torch.utils import profiling
@@ -2152,7 +2175,8 @@ def tracing_phase(pipe, images) -> dict:
 
     plain = run()
     torch.cuda.synchronize()
-    with bench.host_reads(images.device) as n, profiling.trace() as rec, \
+    with truth_value_reads(images.device.type) as n, \
+            profiling.trace() as rec, \
             recording(em_mod, "_split_best_vp", clone=False) as splits:
         out = run()
     faults = []

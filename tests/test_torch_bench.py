@@ -22,6 +22,7 @@ from vanishing_points_2017_tpu_torch import bench
 from vanishing_points_2017_tpu_torch.models import cnn as tcnn
 from vanishing_points_2017_tpu_torch.weights import (load_params_and_mean,
                                                      params_from_numpy)
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED_FLOPS = 6_259_899_584

@@ -24,6 +24,7 @@ from vanishing_points_2017_tpu_torch import weights as tweights
 from vanishing_points_2017_tpu_torch.models import caffe_export as texport
 from vanishing_points_2017_tpu_torch.models import caffe_import as timport
 from vanishing_points_2017_tpu_torch.models import cnn as tcnn
+from torch_cpu import torch_threads  # noqa: F401
 
 INPUT, FC_WIDTH = 120, 64
 

@@ -19,6 +19,7 @@ from vanishing_points_2017_tpu.ops import lines_device as jld
 from vanishing_points_2017_tpu.ops.ccl_pallas import (
     _pack_masks, connected_components_pallas_batch)
 from vanishing_points_2017_tpu_torch.ops import lines_device as tld
+from torch_cpu import torch_threads  # noqa: F401
 
 COS_TOL = math.cos(math.radians(jld.TOL_DEG))
 

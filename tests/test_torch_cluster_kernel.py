@@ -23,6 +23,7 @@ from vanishing_points_2017_tpu_torch.em import cluster
 from vanishing_points_2017_tpu_torch.em import consensus
 from vanishing_points_2017_tpu_torch.em import em as tem
 from vanishing_points_2017_tpu_torch.utils import profiling
+from torch_cpu import torch_threads  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from vanishing_points_2017_tpu.models import cnn as jcnn
 from vanishing_points_2017_tpu_torch.models import cnn as tcnn
 from vanishing_points_2017_tpu_torch.weights import params_from_numpy
+from torch_cpu import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

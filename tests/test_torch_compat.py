@@ -33,6 +33,7 @@ from vanishing_points_2017_tpu_torch.ops import lines_device as tld
 from vanishing_points_2017_tpu_torch.ops import probability as tprob
 from vanishing_points_2017_tpu_torch.ops import sphere as tsphere
 from vanishing_points_2017_tpu_torch.weights import params_from_numpy
+from torch_cpu import torch_threads  # noqa: F401
 
 ATOL = 1e-6
 

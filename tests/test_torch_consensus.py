@@ -18,6 +18,7 @@ from vanishing_points_2017_tpu_torch import pipeline as tpipe
 from vanishing_points_2017_tpu_torch.data import io as tio
 from vanishing_points_2017_tpu_torch.em import EMConfig
 from vanishing_points_2017_tpu_torch.em import consensus as tcons
+from torch_cpu import torch_threads  # noqa: F401
 
 K, N = 4, 256
 HORIZON_ARGS = dict(maxbest=20, theta_vmin=float(np.pi / 10),

@@ -20,6 +20,7 @@ from vanishing_points_2017_tpu_torch.models import cnn
 from vanishing_points_2017_tpu_torch.ops import lines_device as ld
 from vanishing_points_2017_tpu_torch.ops import sphere
 from vanishing_points_2017_tpu_torch.weights import params_from_numpy
+from torch_cpu import torch_threads  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))

@@ -28,6 +28,7 @@ from vanishing_points_2017_tpu_torch.data import datasets as tds
 from vanishing_points_2017_tpu_torch.data import io as tio
 from vanishing_points_2017_tpu_torch.data import minisets as tmini
 from vanishing_points_2017_tpu_torch.models import synth
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the host-path gate of tests/test_torch_host_pipeline.py: normalized

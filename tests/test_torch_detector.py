@@ -15,6 +15,7 @@ from vanishing_points_2017_tpu.models import synth
 from vanishing_points_2017_tpu.ops import lines_device as jld
 from vanishing_points_2017_tpu_torch.ops import lines_device as tld
 from vanishing_points_2017_tpu_torch.ops.select import topk_stable
+from torch_cpu import torch_threads  # noqa: F401
 
 
 def _images(size, seeds):

@@ -26,6 +26,7 @@ from vanishing_points_2017_tpu_torch.em import horizon as thz
 from vanishing_points_2017_tpu_torch.em import init_vps as tinit
 from vanishing_points_2017_tpu_torch.em import weights as tw
 from vanishing_points_2017_tpu_torch.ops import lines as tlines
+from torch_cpu import torch_threads  # noqa: F401
 
 
 def T(a):

@@ -29,6 +29,7 @@ from vanishing_points_2017_tpu_torch.models import synth
 from vanishing_points_2017_tpu_torch.ops import sphere
 from vanishing_points_2017_tpu_torch.pipeline import pad_lines
 from vanishing_points_2017_tpu_torch.utils import profiling
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POPULATIONS = os.path.join(ROOT, "assets", "examples", "jax_reference_em.npz")
@@ -84,17 +85,6 @@ def oracle(args, cfg, on_trip=None) -> tem.EMResult:
 def assert_same(a, b):
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, **SAME)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The EM on the CPU is thousands of small ops: under the suite's
-    parallel workers, each with PyTorch's full thread pool, the pools'
-    waits multiply their time; one thread keeps each at its own cost."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---- the CPU: lockstep, the gate, the loop against the oracle

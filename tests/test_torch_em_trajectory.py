@@ -41,6 +41,7 @@ from vanishing_points_2017_tpu_torch.data.io import normalized_horizon_error
 from vanishing_points_2017_tpu_torch.em import em as tem
 from vanishing_points_2017_tpu_torch.em.horizon import \
     calculate_horizon_and_ortho_vp
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = os.path.join(ROOT, "assets", "examples", "jax_reference_em.npz")

@@ -21,6 +21,7 @@ from vanishing_points_2017_tpu_torch import kernels
 from vanishing_points_2017_tpu_torch.data.io import normalized_horizon_error
 from vanishing_points_2017_tpu_torch.pipeline import Pipeline, PipelineConfig
 from vanishing_points_2017_tpu_torch.weights import load_params_and_mean
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

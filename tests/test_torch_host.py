@@ -19,6 +19,7 @@ from vanishing_points_2017_tpu_torch.data import io as tio
 from vanishing_points_2017_tpu_torch.data.cache import StageCache
 from vanishing_points_2017_tpu_torch.metrics import calc_auc as tauc
 from vanishing_points_2017_tpu_torch.models import synth as tsynth
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = [os.path.join(ROOT, "assets", "examples", f"scene_{i}.png")

@@ -27,6 +27,7 @@ from vanishing_points_2017_tpu_torch.data import datasets as tds
 from vanishing_points_2017_tpu_torch.data import io as tio
 from vanishing_points_2017_tpu_torch.models import synth
 from vanishing_points_2017_tpu_torch.weights import params_from_numpy
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUCKETS = (64, 128)

@@ -23,6 +23,7 @@ from vanishing_points_2017_tpu.data import minisets as jminisets
 from vanishing_points_2017_tpu_torch.data import io as tio
 from vanishing_points_2017_tpu_torch.data import jpeg
 from vanishing_points_2017_tpu_torch.models import synth
+from torch_cpu import torch_threads  # noqa: F401
 
 
 def _pil_bytes(arr, **kw) -> bytes:

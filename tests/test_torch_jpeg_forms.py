@@ -35,6 +35,7 @@ import jpeg_progressive_writer as W
 from vanishing_points_2017_tpu.data import io as jio
 from vanishing_points_2017_tpu_torch.data import io as tio
 from vanishing_points_2017_tpu_torch.data import jpeg
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(ROOT, "assets", "examples")

@@ -40,6 +40,7 @@ from vanishing_points_2017_tpu_torch.data import datasets as tds
 from vanishing_points_2017_tpu_torch.data import io as tio
 from vanishing_points_2017_tpu_torch.data import jpeg
 from vanishing_points_2017_tpu_torch.data import minisets as tmini
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(ROOT, "assets", "examples")

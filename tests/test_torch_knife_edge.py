@@ -26,6 +26,7 @@ from vanishing_points_2017_tpu_torch.ops.lines import segments_to_homogeneous
 from vanishing_points_2017_tpu_torch.ops.lines_device import \
     detect_segments_device
 from vanishing_points_2017_tpu_torch.pipeline import Pipeline, PipelineConfig
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = os.path.join(ROOT, "assets", "examples", "jax_reference_scene12.npz")

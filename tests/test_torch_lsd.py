@@ -9,6 +9,7 @@ import os
 import numpy as np
 
 from vanishing_points_2017_tpu_torch import hostbuild, lsd as tlsd
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

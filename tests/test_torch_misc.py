@@ -27,6 +27,7 @@ from vanishing_points_2017_tpu_torch.data import jpeg
 from vanishing_points_2017_tpu_torch.models import synth
 from vanishing_points_2017_tpu_torch.utils import profiling as tprof
 from vanishing_points_2017_tpu_torch.weights import params_from_numpy
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -32,6 +32,7 @@ from vanishing_points_2017_tpu_torch import pipeline as tpipe
 from vanishing_points_2017_tpu_torch.em import em as tem
 from vanishing_points_2017_tpu_torch.em import horizon as thz
 from vanishing_points_2017_tpu_torch.ops import lines_device as tld
+from torch_cpu import torch_threads, truth_value_reads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "scripts", "make_jax_reference_options.py")
@@ -50,18 +51,6 @@ SIZE, SEEDS = OPTIONS.SMALL_SIZE, OPTIONS.SMALL_SEEDS
 MAX_SEGMENTS = OPTIONS.SLOTS["small"]
 GLOBAL = OPTIONS.GLOBAL
 VARIANTS = {k: v for k, v in OPTIONS.VARIANTS.items() if k != "global"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The port's EM and CPU detector here are thousands of small ops.
-    Under the suite's parallel workers, each with PyTorch's full thread
-    pool, the pools' waits multiply their time (one case ran 270x its
-    single-process time); one thread keeps each at its own cost."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -244,7 +233,7 @@ def test_phase_loop_is_bit_identical_to_uniform(batch, freq, max_reads):
     out, reads = {}, {}
     for loop in ("uniform", "phase"):
         cfg = tem.EMConfig(split_merge_freq=freq, loop=loop)
-        with bench.host_reads(torch.device("cpu")) as n:
+        with truth_value_reads() as n:
             out[loop] = tem.expectation_maximisation(*args, cfg)
         reads[loop] = n["n"]
     same = dict(rtol=0, atol=0, equal_nan=True)

@@ -43,6 +43,7 @@ from vanishing_points_2017_tpu_torch.parallel.launch import run_ranks
 from vanishing_points_2017_tpu_torch.pipeline import (
     PipelineConfig, build_model, device_pipeline_full)
 from vanishing_points_2017_tpu_torch.weights import params_from_numpy
+from torch_cpu import torch_threads  # noqa: F401
 
 # JAX's keep masks of a key: the reference script's helper
 _spec = importlib.util.spec_from_file_location(

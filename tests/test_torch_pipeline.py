@@ -5,7 +5,9 @@ random conv/fc weights with fc8 scaled down and its bias set to the
 logit of the scene's true-VP grid, so the CNN stage runs in full but its
 output is a meaningful prior, and the EM is not left on a random one."""
 
+import ast
 import dataclasses
+import glob
 import os
 import subprocess
 import sys
@@ -24,6 +26,7 @@ from vanishing_points_2017_tpu_torch import pipeline as tpipe
 from vanishing_points_2017_tpu_torch.data import io as tio
 from vanishing_points_2017_tpu_torch.weights import (load_params_and_mean,
                                                      params_from_numpy)
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JCFG = jpipe.PipelineConfig(sphere_size=240, n_pad=256, cnn_dtype="float32",
@@ -174,3 +177,21 @@ def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env=env, timeout=120)
+
+
+def test_port_tests_take_the_thread_policy():
+    """Every ``tests/test_torch_*.py`` takes the CPU thread policy from
+    ``torch_cpu`` by importing its fixture, and inside a port test PyTorch
+    runs one thread, as will the processes the test starts."""
+    missing = []
+    for path in sorted(glob.glob(os.path.join(ROOT, "tests",
+                                              "test_torch_*.py"))):
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        if not any(isinstance(n, ast.ImportFrom) and n.module == "torch_cpu"
+                   and "torch_threads" in {a.name for a in n.names}
+                   for n in tree.body):
+            missing.append(os.path.basename(path))
+    assert not missing, missing
+    assert torch.get_num_threads() == 1
+    assert os.environ["OMP_NUM_THREADS"] == "1"

@@ -18,6 +18,7 @@ from PIL import Image
 
 from vanishing_points_2017_tpu.data import io as jio
 from vanishing_points_2017_tpu_torch.data import io as tio
+from torch_cpu import torch_threads  # noqa: F401
 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))

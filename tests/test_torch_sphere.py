@@ -9,6 +9,7 @@ from vanishing_points_2017_tpu.models import synth
 from vanishing_points_2017_tpu.ops import sphere as jsphere
 from vanishing_points_2017_tpu.ops.sphere_pallas import sphere_render_pallas
 from vanishing_points_2017_tpu_torch.ops import sphere as tsphere
+from torch_cpu import torch_threads  # noqa: F401
 
 
 def _scene_lines(seed, n_pad=48):

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu import torch_threads  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 

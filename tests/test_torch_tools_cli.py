@@ -20,6 +20,7 @@ from vanishing_points_2017_tpu_torch.tools import (eval_device_detector,
                                                    profile_e2e,
                                                    revalidate_detector,
                                                    sweep_detector_gates)
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COMPACT = os.path.join(ROOT, "assets", "weights_compact.npz")

@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from vanishing_points_2017_tpu_torch import bench
 from vanishing_points_2017_tpu_torch import pipeline as tpipe
 from vanishing_points_2017_tpu_torch.data.datasets import render_scene_image
 from vanishing_points_2017_tpu_torch.em import em as tem
 from vanishing_points_2017_tpu_torch.models import synth
 from vanishing_points_2017_tpu_torch.ops import lines as lineops
 from vanishing_points_2017_tpu_torch.utils import profiling
+from torch_cpu import torch_threads, truth_value_reads  # noqa: F401
 
 CFG = tpipe.PipelineConfig(sphere_size=240, n_pad=256, cnn_dtype="float32")
 LAYER_SPANS = {"vp.detector", "vp.render", "vp.cnn", "vp.em", "vp.horizon"}
@@ -148,8 +148,7 @@ def _em_inputs(traced):
 def test_em_host_reads_match_the_monkeypatched_count(traced, loop):
     cfg = dataclasses.replace(CFG.em, loop=loop, split_merge_freq=3)
     args = _em_inputs(traced)
-    with bench.host_reads(torch.device("cpu")) as n, \
-            profiling.trace() as rec:
+    with truth_value_reads() as n, profiling.trace() as rec:
         tem.expectation_maximisation(*args, cfg)
     assert n["n"] > 0
     # outside any vp.batch, the count is the session's

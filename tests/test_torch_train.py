@@ -21,6 +21,7 @@ from vanishing_points_2017_tpu_torch.models import cnn as tcnn
 from vanishing_points_2017_tpu_torch.models import factorize as tfactorize
 from vanishing_points_2017_tpu_torch.models import synth as tsynth
 from vanishing_points_2017_tpu_torch.models import train as ttrain
+from torch_cpu import torch_threads  # noqa: F401
 
 # JAX's Caffe update with the grads given: the reference script's helper
 _spec = importlib.util.spec_from_file_location(

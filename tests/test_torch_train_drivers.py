@@ -14,6 +14,7 @@ from vanishing_points_2017_tpu import weights as jweights
 from vanishing_points_2017_tpu_torch import compress_weights, train_cnn
 from vanishing_points_2017_tpu_torch import weights as tweights
 from vanishing_points_2017_tpu_torch.models import cnn as tcnn
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,6 +18,7 @@ from vanishing_points_2017_tpu_torch import weights as tweights
 from vanishing_points_2017_tpu_torch.models import cnn as tcnn
 from vanishing_points_2017_tpu_torch.models import train as ttrain
 from chip_smoke import cosine
+from torch_cpu import torch_threads  # noqa: F401
 
 
 # JAX's keep masks of a key: the reference script's helper

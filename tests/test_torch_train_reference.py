@@ -18,6 +18,7 @@ import torch
 from vanishing_points_2017_tpu_torch.models import cnn, synth, train
 from vanishing_points_2017_tpu_torch.ops import sphere as sph
 from vpbench.reference import train as ref
+from torch_cpu import torch_threads  # noqa: F401
 
 SIZE, BATCH = 99, 3
 # (name, out, in / groups, kernel): conv1 96, conv2 256 g2, conv3 384,

@@ -26,6 +26,7 @@ from vanishing_points_2017_tpu.data import io as jio
 from vanishing_points_2017_tpu_torch import example
 from vanishing_points_2017_tpu_torch.data import io as tio
 from vanishing_points_2017_tpu_torch.data import webp
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(ROOT, "assets", "examples")

@@ -16,6 +16,7 @@ from vanishing_points_2017_tpu.data import io as jio
 from vanishing_points_2017_tpu_torch import pipeline as tpipe
 from vanishing_points_2017_tpu_torch import weights as tweights
 from vanishing_points_2017_tpu_torch.data import io as tio
+from torch_cpu import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = sorted(glob.glob(os.path.join(ROOT, "assets", "examples",

@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import contextlib
 import json
 import os
 import statistics
@@ -112,33 +111,23 @@ def launch_counts() -> dict:
             for k in kernels.all_kernels()}
 
 
-@contextlib.contextmanager
-def host_reads(dev: torch.device):
-    """Count the host's reads of the truth value of a tensor on ``dev``'s
-    device type inside the block (on a GPU each is a device-to-host sync:
-    the EM's loop conditions); yields a dict whose ``"n"`` holds the
-    count."""
-    n = {"n": 0}
-    orig = torch.Tensor.__bool__
+def em_host_reads(fn) -> int:
+    """The EM's host reads over one call of ``fn``, as the EM counts them
+    itself (the counter ``em.host_reads``, ``em/reads.py``) in a trace
+    session of its own: on a GPU each is a device-to-host sync."""
+    from .utils import profiling
 
-    def counting(t):
-        if t.device.type == dev.type:
-            n["n"] += 1
-        return orig(t)
-
-    torch.Tensor.__bool__ = counting
-    try:
-        yield n
-    finally:
-        torch.Tensor.__bool__ = orig
+    with profiling.trace() as rec:
+        fn()
+    return rec.counters.get("em.host_reads", 0)
 
 
 def stage_pass(host: torch.Tensor, model, mean: torch.Tensor, cfg):
     """One batch through the device-detector path with a synchronize
     after each stage (so a stage's time includes its queued work) ->
-    (seconds per stage in :data:`STAGES` order, the EM's host reads, the
-    EM's largest iteration count). The EM and the horizon search run in
-    the pipeline's fixed chunks (``batching.in_chunks``)."""
+    (seconds per stage in :data:`STAGES` order, the EM's largest
+    iteration count). The EM and the horizon search run in the pipeline's
+    fixed chunks (``batching.in_chunks``)."""
     from .batching import in_chunks
     from .em import calculate_horizon_and_ortho_vp, expectation_maximisation
     from .models import cnn as cnn_mod
@@ -166,23 +155,22 @@ def stage_pass(host: torch.Tensor, model, mean: torch.Tensor, cfg):
         t0 = mark("render", t0)
         pred = model(cnn_mod.preprocess(img_u8, mean))
         t0 = mark("cnn", t0)
-        with host_reads(dev) as reads:
-            em = in_chunks(
-                lambda *a: expectation_maximisation(*a, cfg.em),
-                [l, lp, pred, img_u8.float(), lmask])
+        em = in_chunks(lambda *a: expectation_maximisation(*a, cfg.em),
+                       [l, lp, pred, img_u8.float(), lmask])
         t0 = mark("em", t0)
         in_chunks(lambda v, c, a: calculate_horizon_and_ortho_vp(
             v, c, a, maxbest=cfg.maxbest, theta_vmin=cfg.theta_vmin,
             pos_gate_ideal_tol=cfg.horizon_pos_gate_tol),
             [em.vp, em.counts, em.alive])
         mark("horizon", t0)
-    return t, reads["n"], int(em.iterations.max())
+    return t, int(em.iterations.max())
 
 
 def stage_split(host: torch.Tensor, model, mean: torch.Tensor, cfg,
                 repeats: int) -> dict:
     """The stage split of one batch: :func:`stage_pass` after a warm-up,
-    ``repeats`` times (median ms per stage), then on a GPU once more under
+    ``repeats`` times (median ms per stage), once more for the EM's host
+    reads (:func:`em_host_reads`: traced, so untimed), then on a GPU under
     ``torch.profiler`` for the device's busy time (the sum of its kernels'
     and copies' durations: one stream, so they do not overlap), its idle
     share of the profiled pass's wall time (the profiler's own overhead
@@ -192,6 +180,7 @@ def stage_split(host: torch.Tensor, model, mean: torch.Tensor, cfg,
     dev = mean.device
     stage_pass(host, model, mean, cfg)
     runs = [stage_pass(host, model, mean, cfg) for _ in range(repeats)]
+    reads = em_host_reads(lambda: stage_pass(host, model, mean, cfg))
     stage_ms = {k: statistics.median(r[0][k] for r in runs) * 1e3
                 for k in STAGES}
     wall_ms, by_name = None, {}
@@ -206,7 +195,7 @@ def stage_split(host: torch.Tensor, model, mean: torch.Tensor, cfg,
            for k, (ms, n) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:TOP_KERNELS]]
     return {"stage_ms": stage_ms, "stage_total_ms": sum(stage_ms.values()),
-            "em_host_syncs": runs[-1][1], "em_iterations_max": runs[-1][2],
+            "em_host_syncs": reads, "em_iterations_max": runs[-1][1],
             "profiled_wall_ms": wall_ms,
             "device_busy_ms": busy_ms if note is None else None,
             "device_idle_share": (1.0 - busy_ms / wall_ms

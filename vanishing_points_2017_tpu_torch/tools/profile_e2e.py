@@ -86,7 +86,7 @@ def device_work(fn):
 
 def measure(dev: torch.device, batches=(16, 32), iters: int = 8,
             size: int = 640, em_variant_iters: int = 5) -> dict:
-    from ..bench import host_reads, make_inputs
+    from ..bench import em_host_reads, make_inputs
     from ..ops.lines import segments_to_homogeneous
     from ..ops.lines_device import detect_segments_device
     from ..pipeline import device_pipeline_batch
@@ -123,12 +123,11 @@ def measure(dev: torch.device, batches=(16, 32), iters: int = 8,
             return device_pipeline_batch(l, lp, lm, model, mean, c)
 
         post_first, post_ms, out = timed(post, dev, iters)
-        with host_reads(dev) as reads:
-            post()
+        reads = em_host_reads(post)
         it = out["iterations"].cpu().numpy()
         rec = {"det_first_call_s": det_first, "det_ms": det_ms,
                "post_first_call_s": post_first, "post_ms": post_ms,
-               "em_host_syncs": reads["n"],
+               "em_host_syncs": reads,
                "em_iterations": {"median": float(np.median(it)),
                                  "max": int(it.max()),
                                  "mean": float(it.mean())}}
@@ -139,8 +138,7 @@ def measure(dev: torch.device, batches=(16, 32), iters: int = 8,
             cfg_k = dataclasses.replace(cfg, em=dataclasses.replace(
                 cfg.em, num_iter=em_variant_iters))
             _, post_k_ms, out_k = timed(lambda: post(cfg_k), dev, iters)
-            with host_reads(dev) as reads_k:
-                post(cfg_k)
+            reads_k = em_host_reads(lambda: post(cfg_k))
             full_it = int(out["iterations"].max())
             capped_it = int(out_k["iterations"].max())
             d_it = max(full_it - capped_it, 1)
@@ -148,9 +146,8 @@ def measure(dev: torch.device, batches=(16, 32), iters: int = 8,
                    "batch_max_iters_full": full_it,
                    "batch_max_iters_capped": capped_it,
                    "per_em_iter_ms_per_batch": (post_ms - post_k_ms) / d_it,
-                   "host_syncs_capped": reads_k["n"],
-                   "host_syncs_per_em_iter": (reads["n"] - reads_k["n"])
-                   / d_it}
+                   "host_syncs_capped": reads_k,
+                   "host_syncs_per_em_iter": (reads - reads_k) / d_it}
             if dev.type == "cuda":
                 n_full, busy = device_work(post)
                 n_capped, _ = device_work(lambda: post(cfg_k))
@@ -158,7 +155,7 @@ def measure(dev: torch.device, batches=(16, 32), iters: int = 8,
                         (n_full - n_capped) / d_it,
                         "post_device_busy_ms": busy,
                         "post_idle_ms_per_host_sync":
-                        (post_ms - busy) / max(reads["n"], 1)}
+                        (post_ms - busy) / max(reads, 1)}
             results["em_variant"] = var
             log(f"[b{batch}] em_variant {json.dumps(var)}")
     return results
