@@ -138,9 +138,12 @@ GPU) is what runs:
   inside ``utils.profiling.trace()``, every kernel, copy and set charged
   to a layer span or to ``outside`` by its launch call, the EM's own count
   of its host reads (``em.host_reads``) equal to the truth-value reads on
-  the card, the EM's count of K3's launches (``em.cluster_launches``)
-  equal to its splits, outputs equal to the untraced call's; its numbers
-  in a ``tracing b32`` line and a ``{"tracing": ...}`` JSON line.
+  the card, the EM's stretches graph replays (``em.graph_segments`` > 0,
+  ``em.eager_segments`` 0), the EM's count of K3's launches
+  (``em.cluster_launches``) equal to the kernel's own (the K3 phase holds
+  that count to a device trace), outputs equal to the untraced call's;
+  its numbers in a ``tracing b32`` line and a ``{"tracing": ...}`` JSON
+  line.
 
     python3 chip_smoke.py
 
@@ -168,7 +171,9 @@ path's grid (ms over 8 half passes x H rows), and ``bound_ms`` is the
 least time the card could take for the timed call's work (bytes over
 the memory rate or operations over the float32 rate, whichever is
 larger); K3's ``launches_per_cell_batch`` is its launches on the cell
-batch, ``chain_steps`` the timed call's longest chain of dependent merge
+batch on the main path (as many as the ``cluster_two`` kernels in a
+device trace of that run and the split stretches replayed),
+``chain_steps`` the timed call's longest chain of dependent merge
 steps and ``us_per_step`` its time over that chain.
 """
 
@@ -1883,6 +1888,20 @@ def recording(module, name: str, clone: bool = True):
 
 
 @contextlib.contextmanager
+def em_op_by_op():
+    """Inside the block the EM runs every stretch op by op on the card
+    (``em.em.GRAPH_DEVICES`` emptied), so :func:`recording` sees each
+    split's own call (a replayed graph calls nothing)."""
+    from vanishing_points_2017_tpu_torch.em import em as em_mod
+
+    devices, em_mod.GRAPH_DEVICES = em_mod.GRAPH_DEVICES, ()
+    try:
+        yield
+    finally:
+        em_mod.GRAPH_DEVICES = devices
+
+
+@contextlib.contextmanager
 def truth_value_reads(device_type: str):
     """Count the host's reads of the truth value of a tensor on
     ``device_type`` inside the block, from any thread, by patching
@@ -1906,25 +1925,65 @@ def truth_value_reads(device_type: str):
         torch.Tensor.__bool__ = orig
 
 
+@contextlib.contextmanager
+def device_kernels(pattern: str):
+    """Count the kernels the card runs inside the block whose profiler
+    name matches ``pattern`` (``re.search``: a kernel of an anonymous
+    namespace is named ``(anonymous namespace)::...``) in a kineto device
+    trace of the block (``torch.profiler``): a witness that counts where
+    the kernel ran, CUDA graph replays included. Yields a dict whose
+    ``"n"`` holds the count once the block ends."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = {"n": 0}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield n
+        torch.cuda.synchronize()
+    n["n"] = sum(1 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and re.search(pattern, e.name))
+
+
 def cluster_phase(card: str, dev, clu_k, total: dict) -> dict:
     """K3 (``csrc/cluster_two.cu``) against its plain twin on the split
-    inputs of one batch of the cell :data:`CELL`: the batch's K3 launches
-    (one per split), each split's clusters bit for bit, then K3's time on
-    the batch's first split beside the twin's and its bound. -> the
-    kernel record."""
+    inputs of one batch of the cell :data:`CELL`: the batch on the main
+    path (the EM's graphs captured by a first run), K3's count of its
+    launches equal to the ``cluster_two`` kernels in a device trace of the
+    same run and to the split stretches replayed, with no stretch op by
+    op; then the batch op by op, which records each split's inputs, as
+    many splits, each split's clusters bit for bit against the twin, and
+    K3's time on the batch's first split beside the twin's and its bound.
+    -> the kernel record."""
     import torch
 
     from vanishing_points_2017_tpu_torch.em import cluster
+    from vanishing_points_2017_tpu_torch.em import em as em_mod
 
     step, batch = cell_batch(dev)
+    step(batch)["hp1"].cpu()  # captures the EM's graphs
     reset([clu_k])
-    with recording(cluster, "agglomerative_two") as splits:
+    with recording(em_mod._Driver, "run", clone=False) as runs, \
+            device_kernels(r"\bcluster_two\(") as traced:
         step(batch)["hp1"].cpu()
     per_batch = clu_k.launches
     count([clu_k], total, f"{CELL} batch", need=(clu_k,))
-    if per_batch != len(splits):
-        raise AssertionError(f"K3: {per_batch} launches for {len(splits)} "
-                             "splits")
+    replayed = sum(1 for em, name in runs
+                   if name == "split" and em.replays is not None)
+    op_by_op = sum(1 for em, _ in runs if em.replays is None)
+    if op_by_op or not per_batch == traced["n"] == replayed:
+        raise AssertionError(
+            f"K3 on the main path: {per_batch} launches counted, "
+            f"{traced['n']} in the device trace, {replayed} split "
+            f"stretches replayed, {op_by_op} stretches op by op")
+    with em_op_by_op(), \
+            recording(cluster, "agglomerative_two") as splits:
+        step(batch)["hp1"].cpu()
+    if len(splits) != per_batch:
+        raise AssertionError(f"K3: {per_batch} launches on the main path, "
+                             f"{len(splits)} splits op by op")
     for n, (dist, active) in enumerate(splits):
         got = cluster.agglomerative_two(dist, active)
         want = cluster.agglomerative_two_ref(dist, active)
@@ -2131,12 +2190,12 @@ def identical(a, b) -> bool:
 
 
 def em_bodies(pass_fn) -> int:
-    """How many EM loop bodies (``em.em._iteration`` calls and replays of
-    a plain trip's CUDA graph, ``em.em._Graph.replay``) ``pass_fn()``
-    runs."""
+    """How many EM loop bodies (trips, full and plain, captured or op by
+    op: ``em.em._Driver.trip``) ``pass_fn()`` runs."""
     from vanishing_points_2017_tpu_torch.em import em as em_mod
 
-    orig, replay, n = em_mod._iteration, em_mod._Graph.replay, [0]
+    n = [0]
+    trip = em_mod._Driver.trip
 
     def counted(fn):
         def run(*args, **kwargs):
@@ -2144,29 +2203,29 @@ def em_bodies(pass_fn) -> int:
             return fn(*args, **kwargs)
         return run
 
-    em_mod._iteration = counted(orig)
-    em_mod._Graph.replay = counted(replay)
+    em_mod._Driver.trip = counted(trip)
     try:
         pass_fn()
     finally:
-        em_mod._iteration = orig
-        em_mod._Graph.replay = replay
+        em_mod._Driver.trip = trip
     return n[0]
 
 
 def tracing_phase(pipe, images) -> dict:
     """One batch through ``device_pipeline_full`` inside the port's trace
-    session (``utils/profiling.py``) on the card, held to three things:
-    every kernel, copy and set of the session is charged to a layer span
-    or to ``outside``; the EM's own count of its host reads equals
+    session (``utils/profiling.py``) on the card, held to: every kernel,
+    copy and set of the session is charged to a layer span or to
+    ``outside``; the EM's own count of its host reads equals
     :func:`truth_value_reads`' count of the truth-value reads on the card
-    over the whole call; the EM's count of K3's launches
-    (``em.cluster_launches``) equals its splits; the outputs equal the
-    untraced call's. -> the batch's span, busy and idle ms per layer, EM
-    trips, launches, host reads and K3 launches."""
+    over the whole call; the EM's stretches are graph replays
+    (``em.graph_segments`` > 0, ``em.eager_segments`` 0); the EM's count
+    of K3's launches (``em.cluster_launches``) equals the kernel's own;
+    the outputs equal the untraced call's. -> the batch's span, busy and
+    idle ms per layer, EM trips, launches, host reads, K3 launches and
+    stretches replayed."""
     import torch
 
-    from vanishing_points_2017_tpu_torch.em import em as em_mod
+    from vanishing_points_2017_tpu_torch.em import cluster
     from vanishing_points_2017_tpu_torch.pipeline import device_pipeline_full
     from vanishing_points_2017_tpu_torch.utils import profiling
 
@@ -2175,10 +2234,11 @@ def tracing_phase(pipe, images) -> dict:
 
     plain = run()
     torch.cuda.synchronize()
+    before = cluster.CLUSTER_KERNEL.launches
     with truth_value_reads(images.device.type) as n, \
-            profiling.trace() as rec, \
-            recording(em_mod, "_split_best_vp", clone=False) as splits:
+            profiling.trace() as rec:
         out = run()
+    launched = cluster.CLUSTER_KERNEL.launches - before
     faults = []
     if len(rec.batches) != 1:
         faults.append(f"{len(rec.batches)} vp.batch spans for one call")
@@ -2194,8 +2254,13 @@ def tracing_phase(pipe, images) -> dict:
     if reads != n["n"] or not reads:
         faults.append(f"em.host_reads {reads}, truth-value reads {n['n']}")
     k3 = b["counters"].get("em.cluster_launches", 0)
-    if k3 != len(splits):
-        faults.append(f"em.cluster_launches {k3}, splits {len(splits)}")
+    if k3 != launched:
+        faults.append(f"em.cluster_launches {k3}, K3 launches {launched}")
+    graph = b["counters"].get("em.graph_segments", 0)
+    eager = b["counters"].get("em.eager_segments", 0)
+    if not graph or eager:
+        faults.append(f"em.graph_segments {graph}, em.eager_segments "
+                      f"{eager}")
     differ = [k for k in plain if not identical(plain[k], out[k])]
     if differ:
         faults.append(f"outputs differ with tracing on: {differ}")
@@ -2205,7 +2270,9 @@ def tracing_phase(pipe, images) -> dict:
            "window_ms": rec.window_ms, "idle_ms": rec.idle_ms,
            "em_trips": b["spans"].get("vp.em.iteration", 0),
            "em_launches": b["launches"].get("vp.em", 0),
-           "em_host_reads": reads, "em_cluster_launches": k3}
+           "em_host_reads": reads, "em_cluster_launches": k3,
+           "em_graph_segments": graph, "em_eager_segments": eager,
+           "em_graph_trips": b["counters"].get("em.graph_trips", 0)}
     for layer in profiling.LAYERS + (profiling.OUTSIDE,):
         short = layer.split(".")[-1]
         if layer != profiling.OUTSIDE:

@@ -27,7 +27,7 @@ from torch_cpu import torch_threads  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import cell_batch, recording  # noqa: E402
+from chip_smoke import cell_batch, em_op_by_op, recording  # noqa: E402
 
 SAME = dict(rtol=0, atol=0, equal_nan=True)
 
@@ -143,11 +143,13 @@ def test_k3_matches_the_twin_on_every_kind(cuda, kind):
 @pytest.fixture(scope="module")
 def cell():
     """A batch of the cell sd640_scenes_b32 on the card: its splits'
-    inputs and the EM's inputs, recorded."""
+    inputs and the EM's inputs, recorded, the EM op by op (a replayed
+    graph calls nothing)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     step, batch = cell_batch(torch.device("cuda"))
-    with recording(cluster, "agglomerative_two") as splits, \
+    with em_op_by_op(), \
+            recording(cluster, "agglomerative_two") as splits, \
             recording(consensus, "expectation_maximisation") as ems:
         step(batch)["hp1"].cpu()
     return splits, ems
@@ -163,12 +165,14 @@ def test_k3_matches_the_twin_on_the_cells_splits(cell, cuda):
 
 @pytest.mark.gpu
 def test_em_result_with_k3_equals_the_twins(cell, cuda, monkeypatch):
-    """The EM on the cell batch's inputs: K3's result is the twin's, field
-    for field, with one K3 launch per split. (The counter
-    ``em.cluster_launches`` is checked in ``test_torch_tracing.py``: a
-    trace session here would run before the profiler-based tests of
+    """The EM on the cell batch's inputs, op by op: K3's result is the
+    twin's, field for field, with one K3 launch per split. (The counter
+    ``em.cluster_launches`` is checked in ``test_torch_tracing.py``, and
+    K3 inside the EM's graphs in ``test_torch_em_graph.py``: a trace
+    session here would run before the profiler-based tests of
     ``test_torch_cuda_kernels.py``.)"""
     _, ems = cell
+    monkeypatch.setattr(tem, "GRAPH_DEVICES", ())
     for args in ems:
         before = cluster.CLUSTER_KERNEL.launches
         with recording(tem, "_split_best_vp", clone=False) as splits:

@@ -98,7 +98,8 @@ def test_spans_nest_in_their_layers_and_batch(traced):
                 for c in spans if c[0] == child]
 
     assert all(inside("vp.detector.ccl", "vp.detector"))
-    assert all(inside("vp.em.iteration", "vp.em"))
+    for sub in ("vp.em.setup", "vp.em.iteration", "vp.em.finalize"):
+        assert all(inside(sub, "vp.em")) and inside(sub, "vp.em"), sub
     for layer in LAYER_SPANS | {"vp.detector.ccl", "vp.em.iteration"}:
         assert all(inside(layer, "vp.batch")), layer
     batches = sorted(h for h in spans if h[0] == "vp.batch")
@@ -118,7 +119,8 @@ def test_spans_lie_in_the_session_on_kinetos_clock(traced):
 def test_no_aten_op_is_recorded(traced):
     names = {n for n, _, _ in traced["rec"].host}
     assert names == LAYER_SPANS | {"vp.batch", "vp.detector.ccl",
-                                   "vp.em.iteration", profiling.SESSION}
+                                   "vp.em.setup", "vp.em.iteration",
+                                   "vp.em.finalize", profiling.SESSION}
 
 
 def test_outputs_are_bit_identical_with_tracing_on(traced):
@@ -151,9 +153,13 @@ def test_em_host_reads_match_the_monkeypatched_count(traced, loop):
     with truth_value_reads() as n, profiling.trace() as rec:
         tem.expectation_maximisation(*args, cfg)
     assert n["n"] > 0
-    # outside any vp.batch, the count is the session's
+    # outside any vp.batch, the count is the session's; on the CPU every
+    # stretch runs op by op
     assert rec.batches == []
-    assert rec.counters == {"em.host_reads": n["n"]}
+    assert rec.counters == {"em.host_reads": n["n"],
+                            "em.eager_segments":
+                                rec.counters["em.eager_segments"]}
+    assert rec.counters["em.eager_segments"] > 0
 
 
 def test_em_trips_count_the_iteration_calls(traced, monkeypatch):
@@ -207,7 +213,8 @@ HOST = [("vp.session", 0, 1000), ("vp.batch", 100, 900),
 
 @pytest.mark.parametrize("name,layer", [
     ("vp.detector", "vp.detector"), ("vp.detector.ccl", "vp.detector"),
-    ("vp.em.iteration", "vp.em"), ("vp.emx", "outside"),
+    ("vp.em.iteration", "vp.em"), ("vp.em.setup", "vp.em"),
+    ("vp.em.finalize", "vp.em"), ("vp.emx", "outside"),
     ("vp.batch", "outside"), ("vp.train", "outside"),
     ("vp.train.update", "vp.train.update"),
     ("vp.train.update.foreach", "vp.train.update"),
@@ -275,6 +282,29 @@ def test_trace_writes_a_chrome_trace_of_the_spans(traced, tmp_path):
         names = {e.get("name") for e in json.load(fh)["traceEvents"]}
     assert LAYER_SPANS | {"vp.batch", "vp.detector.ccl"} <= names
     assert len(rec.batches) == 1
+
+
+def test_counts_held_back_stay_out_of_the_session():
+    """Counts made inside ``held()`` (a CUDA graph's capture), counters
+    and tallies (a kernel's count of its launches), reach its list only,
+    in a session or not; the caller makes them again, once a replay."""
+    tallied = []
+    with profiling.trace() as rec:
+        profiling.count("a")
+        with profiling.held() as held:
+            profiling.count("a", 2)
+            profiling.count("b")
+            profiling.tally(lambda: tallied.append(1))
+        assert not tallied
+        for _ in range(2):
+            for again in held:
+                again()
+    assert rec.counters == {"a": 5, "b": 2} and tallied == [1, 1]
+    with profiling.held() as off:
+        profiling.count("c")
+    assert len(off) == 1 and profiling._held is None
+    profiling.tally(lambda: tallied.append(1))
+    assert tallied == [1, 1, 1]
 
 
 def test_sessions_do_not_nest():
@@ -356,8 +386,9 @@ def test_a_traced_batch_on_the_card():
 @pytest.mark.gpu
 def test_k3_launches_are_counted_per_split_on_the_card():
     """A batch of the benchmark cell ``sd640_scenes_b32``, which splits,
-    under the trace session: the EM's count of K3's launches
-    (``em.cluster_launches``) equals its splits."""
+    under the trace session, its EM's graphs captured before: the EM's
+    count of K3's launches (``em.cluster_launches``) equals the kernel's
+    own and the split stretches replayed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     import os
@@ -366,11 +397,15 @@ def test_k3_launches_are_counted_per_split_on_the_card():
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from chip_smoke import cell_batch, recording
+    from vanishing_points_2017_tpu_torch.em import cluster
 
     step, batch = cell_batch(torch.device("cuda"))
+    step(batch)["hp1"].cpu()
+    before = cluster.CLUSTER_KERNEL.launches
     with profiling.trace() as rec, \
-            recording(tem, "_split_best_vp", clone=False) as splits:
+            recording(tem._Driver, "run", clone=False) as runs:
         step(batch)["hp1"].cpu()
+    splits = [r for r in runs if r[1] == "split"]
     assert splits and len(rec.batches) == 1
     assert rec.batches[0]["counters"].get("em.cluster_launches") == \
-        len(splits)
+        len(splits) == cluster.CLUSTER_KERNEL.launches - before

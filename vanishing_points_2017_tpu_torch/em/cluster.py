@@ -32,7 +32,8 @@ def agglomerative_two(dist: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """dist (B, N, N) float32, active (B, N) bool, contiguous, on one
     device -> (B, N) bool: True for the items in the cluster holding each
     image's lowest-indexed active item. The plain twin on the CPU; on a
-    CUDA device one launch of K3, counted as ``em.cluster_launches``."""
+    CUDA device one launch of K3, counted as ``em.cluster_launches``
+    (inside a CUDA graph's capture, at each replay: ``em.em._capture``)."""
     dev = dist.device
     if dev.type not in ("cpu", "cuda") or active.dim() != 2:
         raise ValueError(f"agglomerative_two: dist on {dev}, active of "

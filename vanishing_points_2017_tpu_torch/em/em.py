@@ -29,12 +29,19 @@ full body and then ``split_merge_freq - 1`` plain bodies per trip, and
 reads ``done`` once per trip. Its outputs are bit-identical to the
 uniform loop's; bodies run on images already done leave them unchanged.
 
-On a CUDA device a plain body is one replay of a CUDA graph
-(:class:`_Graph`), captured once per shape and configuration over
-buffers of its own: each call copies its inputs in, consecutive plain
-trips replay back to back with the state updated in place, and the
-state is copied in and out only where a plain trip meets a full one or
-the end. On the CPU the plain body runs op by op.
+A call runs as a sequence of stretches (:func:`_stretches`): the device
+work between two host reads (the set-up, a plain trip, a full trip's
+gates, split, E/M step, merge step and swap, the convergence block's
+pieces and prune step), driven by :class:`_Driver` over the call's
+buffers by name. On a CUDA device each stretch is one replay of a CUDA
+graph: a set of graphs is captured once per device, configuration and
+input shapes over buffers of its own, a call copies its inputs in and
+its result out, and the host reads the loop conditions from those
+buffers, the same reads in the same places as op by op. On the CPU, and
+for shapes past ``GRAPH_CAP``, every stretch runs op by op. The set-up is
+the span ``vp.em.setup`` and the convergence block ``vp.em.finalize``;
+replays count ``em.graph_segments`` (a plain trip's ``em.graph_trips``),
+stretches op by op ``em.eager_segments`` (plain trips aside).
 
 Reference quirks kept (see the JAX module): split's in-image check on the
 raw slot index, merge writing s[k] before validating, NaN stddevs sorting
@@ -44,6 +51,7 @@ first in the split order, the hardcoded count < 3 initial prune.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 from typing import NamedTuple
@@ -61,8 +69,8 @@ from .reads import host_bool
 LOG_S_THRESH = prob.LOG_S_FLOOR  # log(1e-200)
 SPLIT_MERGE_IT = 100  # reference hardcodes split_merge_it = 100
 MERGE_MAX_STDD = 0.01  # merge_vps' own default max_stdd
-# where the plain body runs as a captured graph, and how many graphs a
-# thread keeps; further shapes run it op by op
+# where the EM's stretches run as captured graphs, and how many sets of
+# them a thread keeps; further shapes run op by op
 GRAPH_DEVICES = ("cuda",)
 GRAPH_CAP = 8
 
@@ -122,6 +130,9 @@ class EMResult(NamedTuple):
 
 def _f32log(x: float) -> float:
     return float(torch.log(torch.tensor(x, dtype=torch.float32)))
+
+
+LOG_MERGE_MAX_STDD = _f32log(MERGE_MAX_STDD)
 
 
 def _sel(cond: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
@@ -206,45 +217,48 @@ class _Ctx(NamedTuple):
                                      bias=self.cfg.wbias)
 
 
-def _merge_vps(v, log_s, alive, thresh: float, go, ctx: _Ctx):
-    """Masked ``merge_vps``: repeatedly merge each image's closest alive VP
-    pair (j < k: j deleted, k keeps the merged VP) while its angle is below
-    ``thresh``; s[k] is written before the acceptance check (the
-    reference's mutation-on-rejection quirk)."""
+def _merge_start(alive, go):
+    """The images of ``go`` that :func:`_merge_step` should try: those
+    with more than one alive VP."""
+    return go & (torch.sum(alive, dim=1) > 1)
+
+
+def _merge_step(v, log_s, alive, try_again, thresh: float, ctx: _Ctx):
+    """One step of ``merge_vps``' loop for the images of ``try_again``:
+    merge each one's closest alive VP pair (j < k: j deleted, k keeps the
+    merged VP) if its angle is below ``thresh``; s[k] is written before
+    the acceptance check (the reference's mutation-on-rejection quirk).
+    -> (v, log_s, alive, try_again for the next step)."""
     b, ms, _ = v.shape
     bi = torch.arange(b, device=v.device)
     slots = torch.arange(ms, device=v.device)[None]
-    log_max = _f32log(MERGE_MAX_STDD)
-    try_again = go & (torch.sum(alive, dim=1) > 1)
-    while host_bool(try_again.any()):
-        ang = _pairwise_vp_angles(v, alive)
-        flat = torch.argmin(ang.reshape(b, -1), dim=1)
-        j, k = flat // ms, flat % ms
-        mergeable = ang[bi, j, k] < thresh
+    ang = _pairwise_vp_angles(v, alive)
+    flat = torch.argmin(ang.reshape(b, -1), dim=1)
+    j, k = flat // ms, flat % ms
+    mergeable = ang[bi, j, k] < thresh
 
-        p, w = ctx.estep(v, alive, log_s)
-        new_vp, vp_ok = wmod.calc_new_vanishing_point(
-            ctx.l, (w[bi, j] + w[bi, k])[:, None])
-        new_vp, vp_ok = new_vp[:, 0], vp_ok[:, 0]
-        pair_pvl = p.p_vl[bi, k] + p.p_vl[bi, j]
-        mean_lvsq = 0.5 * (p.lvsq[bi, :, j] + p.lvsq[bi, :, k])
-        s_k = _s_update_log(mean_lvsq, pair_pvl)
+    p, w = ctx.estep(v, alive, log_s)
+    new_vp, vp_ok = wmod.calc_new_vanishing_point(
+        ctx.l, (w[bi, j] + w[bi, k])[:, None])
+    new_vp, vp_ok = new_vp[:, 0], vp_ok[:, 0]
+    pair_pvl = p.p_vl[bi, k] + p.p_vl[bi, j]
+    mean_lvsq = 0.5 * (p.lvsq[bi, :, j] + p.lvsq[bi, :, k])
+    s_k = _s_update_log(mean_lvsq, pair_pvl)
 
-        # NaN s_k accepts the merge (the reference's `s[k] > max_stdd` is
-        # False for NaN); the next M-step's NaN check removes it
-        accept = vp_ok & ~(s_k > log_max)
-        is_k = slots == k[:, None]
-        log_s2 = torch.where(is_k, s_k[:, None], log_s)
-        take = (accept & mergeable)[:, None]
-        v2 = torch.where((is_k & take)[..., None], new_vp[:, None], v)
-        alive2 = alive & ~((slots == j[:, None]) & take)
+    # NaN s_k accepts the merge (the reference's `s[k] > max_stdd` is
+    # False for NaN); the next M-step's NaN check removes it
+    accept = vp_ok & ~(s_k > LOG_MERGE_MAX_STDD)
+    is_k = slots == k[:, None]
+    log_s2 = torch.where(is_k, s_k[:, None], log_s)
+    take = (accept & mergeable)[:, None]
+    v2 = torch.where((is_k & take)[..., None], new_vp[:, None], v)
+    alive2 = alive & ~((slots == j[:, None]) & take)
 
-        upd = try_again & mergeable
-        v = _sel(upd, v2, v)
-        log_s = _sel(upd, log_s2, log_s)
-        alive = _sel(upd, alive2, alive)
-        try_again = upd & accept & (torch.sum(alive, dim=1) > 1)
-    return v, log_s, alive
+    upd = try_again & mergeable
+    v = _sel(upd, v2, v)
+    log_s = _sel(upd, log_s2, log_s)
+    alive = _sel(upd, alive2, alive)
+    return v, log_s, alive, upd & accept & (torch.sum(alive, dim=1) > 1)
 
 
 def _split_best_vp(v_cur, log_s, alive, w, go, ctx: _Ctx):
@@ -311,20 +325,40 @@ def _split_best_vp(v_cur, log_s, alive, w, go, ctx: _Ctx):
     return v_out, log_s_out, alive | is_free
 
 
-def _finalize(st: _State, ctx: _Ctx) -> EMResult:
-    """The reference's convergence block: final merge at 10x threshold,
-    per-VP refit from argmax-assigned lines, uniqueness filter, outlier
-    counting and iterative min-line pruning."""
-    i, v_cur, v_next, log_s, alive, _, empty = st
-    cfg = ctx.cfg
-    b, ms, _ = v_cur.shape
-    dev = v_cur.device
-    slots = torch.arange(ms, device=dev)[None]
-    go = ~empty
+class _Final(NamedTuple):
+    """The convergence block's state between its merge and its result:
+    the refit VPs and log variances, the alive slots, the inlier counts
+    and the decision metric of the last count pass, the images left
+    without a VP by the refit, and the VPs under ``num_min_lines``
+    inliers."""
 
-    if cfg.do_merge:
-        v_next, log_s, alive = _merge_vps(v_next, log_s, alive,
-                                          cfg.merge_thresh * 10.0, go, ctx)
+    alive: torch.Tensor
+    counts: torch.Tensor
+    cw: torch.Tensor
+    assoc3: torch.Tensor
+    dm3: torch.Tensor
+    v_next: torch.Tensor
+    log_s: torch.Tensor
+    empty2: torch.Tensor
+    under: torch.Tensor
+
+
+def _count_pass(v, alive, log_s, ctx: _Ctx):
+    """Inlier counts of the VPs ``v``: (counts, weighted counts, line
+    assignment, decision metric)."""
+    _, dm = ctx.estep(v, alive, log_s)
+    counts, cw, assoc = wmod.calc_vp_line_counts(
+        v, alive, ctx.l, ctx.lp, ctx.lmask, log_s, dm, ctx.lweight,
+        ctx.cfg.distance_measure, thresh=ctx.cfg.outlier_thresh)
+    return counts, cw, assoc, dm
+
+
+def _final_counts(st: _State, v_next, log_s, alive, ctx: _Ctx) -> _Final:
+    """The convergence block after its merge: per-VP refit from
+    argmax-assigned lines, the uniqueness filter and the first count
+    pass."""
+    v_cur, empty = st.v_cur, st.empty
+    slots = torch.arange(v_cur.shape[1], device=v_cur.device)[None]
 
     p, w = ctx.estep(v_cur, alive, log_s)
     assoc = wmod.assoc_argmax(w, alive, ctx.lmask)
@@ -348,36 +382,38 @@ def _finalize(st: _State, ctx: _Ctx) -> EMResult:
     max_dec = wmod.assoc_argmax(dm, alive, ctx.lmask)
     alive = alive & (max_dec[:, None, :] == slots[..., None]).any(dim=2)
 
-    def count_pass(alive):
-        _, dm3 = ctx.estep(v_next, alive, log_s)
-        counts, cw, assoc3 = wmod.calc_vp_line_counts(
-            v_next, alive, ctx.l, ctx.lp, ctx.lmask, log_s, dm3, ctx.lweight,
-            cfg.distance_measure, thresh=cfg.outlier_thresh)
-        return counts, cw, assoc3, dm3
+    counts, cw, assoc3, dm3 = _count_pass(v_next, alive, log_s, ctx)
+    return _Final(alive, counts, cw, assoc3, dm3, v_next, log_s, empty2,
+                  alive & (counts < ctx.cfg.num_min_lines))
 
-    counts, cw, assoc3, dm3 = count_pass(alive)
-    under = alive & (counts < cfg.num_min_lines)
-    while host_bool(under.any()):
-        prune = under.any(dim=1)
-        vidx = torch.argmax(under.to(torch.uint8), dim=1)  # lowest slot
-        alive2 = alive & (slots != vidx[:, None])
-        c2, w2, a2, d2 = count_pass(alive2)
-        alive = _sel(prune, alive2, alive)
-        counts = _sel(prune, c2, counts)
-        cw = _sel(prune, w2, cw)
-        assoc3 = _sel(prune, a2, assoc3)
-        dm3 = _sel(prune, d2, dm3)
-        under = alive & (counts < cfg.num_min_lines)
 
-    valid = ~empty2 & (torch.sum(alive, dim=1) > 0)
+def _prune_step(f: _Final, ctx: _Ctx) -> _Final:
+    """One step of the min-line prune: each image with a VP under
+    ``num_min_lines`` inliers loses its lowest such slot, and its VPs are
+    counted again."""
+    slots = torch.arange(f.alive.shape[1], device=f.alive.device)[None]
+    prune = f.under.any(dim=1)
+    vidx = torch.argmax(f.under.to(torch.uint8), dim=1)  # lowest slot
+    alive2 = f.alive & (slots != vidx[:, None])
+    c2, w2, a2, d2 = _count_pass(f.v_next, alive2, f.log_s, ctx)
+    alive = _sel(prune, alive2, f.alive)
+    counts = _sel(prune, c2, f.counts)
+    return f._replace(alive=alive, counts=counts, cw=_sel(prune, w2, f.cw),
+                      assoc3=_sel(prune, a2, f.assoc3),
+                      dm3=_sel(prune, d2, f.dm3),
+                      under=alive & (counts < ctx.cfg.num_min_lines))
+
+
+def _result(f: _Final, iterations) -> EMResult:
+    valid = ~f.empty2 & (torch.sum(f.alive, dim=1) > 0)
     zero = lambda x: _sel(valid, x, torch.zeros_like(x))
     return EMResult(
-        vp=torch.where((alive & valid[:, None])[..., None], v_next, 0.0),
-        alive=alive & valid[:, None],
-        vp_assoc=_sel(valid, assoc3, torch.full_like(assoc3, -1)),
-        counts=zero(counts), counts_weighted=zero(cw),
-        decision_metric=zero(dm3), log_sigma=log_s, iterations=i,
-        valid=valid)
+        vp=torch.where((f.alive & valid[:, None])[..., None], f.v_next, 0.0),
+        alive=f.alive & valid[:, None],
+        vp_assoc=_sel(valid, f.assoc3, torch.full_like(f.assoc3, -1)),
+        counts=zero(f.counts), counts_weighted=zero(f.cw),
+        decision_metric=zero(f.dm3), log_sigma=f.log_s,
+        iterations=iterations, valid=valid)
 
 
 def _setup(l, lp, cnn_response, sphere_image, lmask, cfg: EMConfig):
@@ -424,38 +460,27 @@ def _setup(l, lp, cnn_response, sphere_image, lmask, cfg: EMConfig):
                   torch.zeros_like(v0), log_s, alive, flag, flag), ctx
 
 
-def _iteration(st: _State, ctx: _Ctx, with_split_merge: bool = True
-               ) -> _State:
-    """One pass of the loop body for every image not yet done, in the span
-    ``vp.em.iteration`` (see :func:`_body`)."""
-    with profiling.span("vp.em.iteration"):
-        return _body(st, ctx, with_split_merge)
+def _head(st: _State, cfg: EMConfig, full: bool):
+    """The body's gates: (images without a VP, images running, images at
+    a split/merge iteration and images due a split; the last two None
+    off a full body, the last also without ``do_split``)."""
+    i = st.i
+    empty_now = torch.sum(st.alive, dim=1) == 0
+    go = ~st.done & ~empty_now
+    phase = split_due = None
+    if full:
+        phase = (torch.remainder(i, cfg.split_merge_freq) == 0) & (i > 0)
+        if cfg.do_split:
+            # every split_merge_freq iterations, 0 < i < 100
+            split_due = go & phase & (i < SPLIT_MERGE_IT)
+    return empty_now, go, phase, split_due
 
 
-def _body(st: _State, ctx: _Ctx, with_split_merge: bool) -> _State:
-    """The loop body: the split move when due, the E-step, the M-step
-    (weighted TLS refit and variance update), the periodic merge when
-    due, the buffer swap. ``with_split_merge=False`` leaves split and
-    merge out (the plain body), so the body reads nothing back to the
-    host and runs the same ops on the same shapes every time."""
+def _step(st: _State, vc, ls, al, go, ctx: _Ctx):
+    """E-step + M-step of the images ``go`` on the VPs ``vc``: weighted
+    TLS refit and variance update -> (next VPs, log s, alive,
+    converged)."""
     cfg, l = ctx.cfg, ctx.l
-    i, v_cur, v_next, log_s, alive, done, empty = st
-    b = l.shape[0]
-    freq = cfg.split_merge_freq
-    empty_now = torch.sum(alive, dim=1) == 0
-    go = ~done & ~empty_now
-    if with_split_merge:
-        phase = (torch.remainder(i, freq) == 0) & (i > 0)
-    vc, ls, al = v_cur, log_s, alive
-
-    # ---- split move (every split_merge_freq iterations, 0 < i < 100)
-    if cfg.do_split and with_split_merge:
-        split_due = go & phase & (i < SPLIT_MERGE_IT)
-        if host_bool(split_due.any()):
-            _, w_s = ctx.estep(vc, al, ls)
-            vc, ls, al = _split_best_vp(vc, ls, al, w_s, split_due, ctx)
-
-    # ---- E-step + M-step: weighted TLS refit + variance update
     p, w = ctx.estep(vc, al, ls)
     if cfg.do_iterations:
         new_vps, vp_ok = wmod.calc_new_vanishing_point(l, w)
@@ -472,35 +497,40 @@ def _body(st: _State, ctx: _Ctx, with_split_merge: bool) -> _State:
         alive2 = al & ~removed
     else:
         v_next2, log_s2, alive2 = vc, ls, al
-        max_err = torch.zeros(b, dtype=torch.float32, device=l.device)
-    vn = _sel(go, v_next2, v_next)
+        max_err = torch.zeros(l.shape[0], dtype=torch.float32,
+                              device=l.device)
+    vn = _sel(go, v_next2, st.v_next)
     ls = _sel(go, log_s2, ls)
     al = _sel(go, alive2, al)
     converged = ((max_err < cfg.final_convergence)
-                 | (i == cfg.num_iter - 1) | (not cfg.do_iterations))
+                 | (st.i == cfg.num_iter - 1) | (not cfg.do_iterations))
+    return vn, ls, al, converged
 
-    # ---- periodic merge (only when not converged this iteration)
-    if cfg.do_merge and with_split_merge:
-        merge_due = (go & ~converged & phase
-                     & (i <= SPLIT_MERGE_IT + freq))
-        if host_bool(merge_due.any()):
-            vn, ls, al = _merge_vps(vn, ls, al, cfg.merge_thresh,
-                                    merge_due, ctx)
 
-    # buffer swap for the next iteration; images already done keep
-    # their whole state, as under a vmapped while_loop
+def _merge_due(i, go, converged, phase, cfg: EMConfig):
+    """The images due the periodic merge: at a split/merge iteration and
+    not converged in it."""
+    return go & ~converged & phase & (i <= SPLIT_MERGE_IT
+                                      + cfg.split_merge_freq)
+
+
+def _tail(st: _State, vc, vn, ls, al, go, converged, empty_now) -> _State:
+    """The buffer swap for the next iteration; images already done keep
+    their whole state, as under a vmapped while_loop."""
     swap = go & ~converged
-    run = ~done
-    return _State(i=torch.where(swap, i + 1, i),
-                  v_cur=_sel(run, _sel(swap, vn, vc), v_cur),
-                  v_next=_sel(run, vn, v_next), log_s=_sel(run, ls, log_s),
-                  alive=_sel(run, al, alive), done=done | (go & converged)
-                  | empty_now, empty=empty | (run & empty_now))
+    run = ~st.done
+    return _State(i=torch.where(swap, st.i + 1, st.i),
+                  v_cur=_sel(run, _sel(swap, vn, vc), st.v_cur),
+                  v_next=_sel(run, vn, st.v_next),
+                  log_s=_sel(run, ls, st.log_s),
+                  alive=_sel(run, al, st.alive),
+                  done=st.done | (go & converged) | empty_now,
+                  empty=st.empty | (run & empty_now))
 
 
 def _full_trip(t: int, cfg: EMConfig) -> bool:
     """Whether trip ``t`` of the uniform loop runs the full body: the
-    trips on which :func:`_body`'s split or merge gate can hold for an
+    trips on which a full trip's split or merge gate can hold for an
     image at iteration ``t``, which every image still running is (module
     docstring). On the others no image is due and the plain body gives
     the same state."""
@@ -511,119 +541,338 @@ def _full_trip(t: int, cfg: EMConfig) -> bool:
             or (cfg.do_merge and t <= SPLIT_MERGE_IT + f))
 
 
-def _capture(step, device: torch.device):
-    """``step`` captured as a CUDA graph on ``device``, after one run of
-    it on the capture's side stream (``torch.cuda.graphs``' warm-up rule)
-    -> a function that replays it there, whichever device is current."""
+# ---- the stretches: a call's device work between two host reads, each a
+# function of the call's buffers by name (``ns``) -> what it writes there
+
+
+_INPUTS = ("in_l", "in_lp", "in_cnn", "in_sphere", "in_lmask")
+_CTX_TENSORS = ("l", "lp", "lmask", "lweight", "lsim", "langles")
+
+
+def _ns_ctx(ns: dict) -> _Ctx:
+    return _Ctx(prob.PDFParams(ns["means"], ns["weights"], ns["sigma"]),
+                *(ns[k] for k in _CTX_TENSORS), ns["cfg"],
+                ns["log_max_stdd"])
+
+
+def _ns_state(ns: dict) -> _State:
+    return _State(*(ns[k] for k in _State._fields))
+
+
+def _ns_final(ns: dict) -> _Final:
+    return _Final(*(ns["f_" + k] for k in _Final._fields))
+
+
+def _with_done_all(st: _State) -> dict:
+    return dict(st._asdict(), done_all=st.done.all())
+
+
+def _ns_of(st: _State, ctx: _Ctx) -> dict:
+    """The entries of ``ns`` that hold ``st`` and ``ctx``."""
+    p = ctx.pdfpar
+    return dict(cfg=ctx.cfg, means=p.means, weights=p.weights,
+                sigma=p.sigma, log_max_stdd=ctx.log_max_stdd,
+                **{k: getattr(ctx, k) for k in _CTX_TENSORS},
+                **st._asdict())
+
+
+def _again(try_again) -> dict:
+    return dict(try_again=try_again, again_any=try_again.any())
+
+
+def _final_entries(f: _Final) -> dict:
+    return dict({"f_" + k: x for k, x in f._asdict().items()},
+                under_any=f.under.any())
+
+
+def _s_setup(ns):
+    st, ctx = _setup(*(ns[k] for k in _INPUTS), ns["cfg"])
+    return dict(_ns_of(st, ctx), **_with_done_all(st))
+
+
+def _s_head(ns):
+    st = _ns_state(ns)
+    empty_now, go, phase, due = _head(st, ns["cfg"], True)
+    out = dict(empty_now=empty_now, go=go, phase=phase, vc=st.v_cur,
+               ls=st.log_s, al=st.alive)
+    if due is not None:
+        out.update(split_due=due, split_any=due.any())
+    return out
+
+
+def _s_split(ns):
+    """The split move for the images due: an E-step, then
+    :func:`_split_best_vp`."""
+    ctx = _ns_ctx(ns)
+    _, w = ctx.estep(ns["vc"], ns["al"], ns["ls"])
+    vc, ls, al = _split_best_vp(ns["vc"], ns["ls"], ns["al"], w,
+                                ns["split_due"], ctx)
+    return dict(vc=vc, ls=ls, al=al)
+
+
+def _s_step(ns):
+    st, cfg = _ns_state(ns), ns["cfg"]
+    vn, ls, al, converged = _step(st, ns["vc"], ns["ls"], ns["al"],
+                                  ns["go"], _ns_ctx(ns))
+    out = dict(vn=vn, ls=ls, al=al, converged=converged)
+    if cfg.do_merge:
+        due = _merge_due(st.i, ns["go"], converged, ns["phase"], cfg)
+        out.update(merge_any=due.any(), **_again(_merge_start(al, due)))
+    return out
+
+
+def _s_merge(ns, final: bool):
+    cfg = ns["cfg"]
+    thresh = cfg.merge_thresh * 10.0 if final else cfg.merge_thresh
+    vn, ls, al, again = _merge_step(ns["vn"], ns["ls"], ns["al"],
+                                    ns["try_again"], thresh, _ns_ctx(ns))
+    return dict(vn=vn, ls=ls, al=al, **_again(again))
+
+
+def _s_tail(ns):
+    return _with_done_all(_tail(
+        _ns_state(ns), ns["vc"], ns["vn"], ns["ls"], ns["al"], ns["go"],
+        ns["converged"], ns["empty_now"]))
+
+
+def _s_plain(ns):
+    """The plain body: the E-step, the M-step and the swap, split and
+    merge left out, so it reads nothing back to the host and runs the
+    same ops on the same shapes every time."""
+    st = _ns_state(ns)
+    empty_now, go, _, _ = _head(st, ns["cfg"], False)
+    vn, ls, al, converged = _step(st, st.v_cur, st.log_s, st.alive, go,
+                                  _ns_ctx(ns))
+    return _with_done_all(_tail(st, st.v_cur, vn, ls, al, go, converged,
+                                empty_now))
+
+
+def _s_final_in(ns):
+    st = _ns_state(ns)
+    out = dict(vn=st.v_next, ls=st.log_s, al=st.alive)
+    if ns["cfg"].do_merge:
+        out.update(_again(_merge_start(st.alive, ~st.empty)))
+    return out
+
+
+def _s_final_mid(ns):
+    return _final_entries(_final_counts(_ns_state(ns), ns["vn"], ns["ls"],
+                                        ns["al"], _ns_ctx(ns)))
+
+
+def _s_prune(ns):
+    return _final_entries(_prune_step(_ns_final(ns), _ns_ctx(ns)))
+
+
+def _s_final_out(ns):
+    return {"r_" + k: x
+            for k, x in _result(_ns_final(ns), ns["i"])._asdict().items()}
+
+
+def _stretches(cfg: EMConfig) -> dict:
+    """The stretches a call with ``cfg`` can run, by name, in the order a
+    call meets them: the set-up; a full trip's head (gates), split, E/M
+    step (up to the merge gate), merge step and tail (the swap); the plain
+    trip; the convergence block's stretch before its merge (at 10x the
+    threshold), its merge step, the stretch between its merge and prune
+    loops (refit, uniqueness filter, first count pass), a prune step and
+    the result."""
+    s = {"setup": _s_setup, "head": _s_head}
+    if cfg.do_split:
+        s["split"] = _s_split
+    s["step"] = _s_step
+    if cfg.do_merge:
+        s["merge"] = functools.partial(_s_merge, final=False)
+    s.update(tail=_s_tail, plain=_s_plain, final_in=_s_final_in)
+    if cfg.do_merge:
+        s["final_merge"] = functools.partial(_s_merge, final=True)
+    s.update(final_mid=_s_final_mid, prune=_s_prune, final_out=_s_final_out)
+    return s
+
+
+def _store(ns: dict, out: dict) -> None:
+    """Write a stretch's results into the buffers of ``ns``, each made on
+    the name's first write. A result is a new tensor, or a buffer that the
+    stretch does not write (so the copies' order does not matter)."""
+    for k, x in out.items():
+        if not isinstance(x, torch.Tensor):
+            ns[k] = x
+        elif k not in ns:
+            ns[k] = x.clone()
+        elif x is not ns[k]:
+            ns[k].copy_(x)
+
+
+def _capture(step, device: torch.device, shared: dict):
+    """``step`` captured as a CUDA graph on ``device``, after one run of it
+    on the capture's side stream (``torch.cuda.graphs``' warm-up rule),
+    whose counts go nowhere. The captures of one ``shared`` dict use one
+    side stream and one memory pool, which the first of them makes -> a
+    function that replays the graph there, whichever device is current,
+    and makes again the counts the capture held back
+    (``profiling.held``)."""
     with torch.cuda.device(device):
-        s = torch.cuda.Stream()
+        if not shared:
+            shared["stream"] = torch.cuda.Stream()
+        s = shared["stream"]
         s.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(s):
+        with profiling.held(), torch.cuda.stream(s):
             step()
         torch.cuda.current_stream().wait_stream(s)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
+        with profiling.held() as counts, torch.cuda.graph(
+                g, pool=shared.get("pool"), stream=s,
+                capture_error_mode="thread_local"):
             step()
+        shared["pool"] = g.pool()
 
     def replay():
         with torch.cuda.device(device):
             g.replay()
+        for again in counts:
+            again()
 
     return replay
 
 
-_CTX_TENSORS = ("l", "lp", "lmask", "lweight", "lsim", "langles")
+class _Driver:
+    """A call's stretches (:func:`_stretches`) over one set of buffers by
+    name, ``ns``: the inputs, the context, the loop state and what each
+    stretch hands the next. The host reads the loop's conditions from
+    ``ns`` between two stretches. Without ``replays`` each stretch runs op
+    by op on ``ns`` as it stands, counted ``em.eager_segments``; a trip is
+    :func:`_iteration`. Captured (:meth:`captured`), each stretch is a
+    replay of a CUDA graph, counted ``em.graph_segments`` (a plain trip's
+    ``em.graph_trips``); a call copies its inputs into the set's own
+    buffers and its result out."""
 
+    def __init__(self, ns: dict):
+        self.ns, self.cfg = ns, ns["cfg"]
+        self.fns = _stretches(self.cfg)
+        self.replays: dict | None = None
 
-def _ctx_tensors(ctx: _Ctx) -> tuple:
-    return (ctx.pdfpar.means, ctx.pdfpar.weights) + tuple(
-        getattr(ctx, k) for k in _CTX_TENSORS)
-
-
-class _Graph:
-    """The plain body captured over buffers of its own: ``ctx`` and
-    ``st`` hold a call's context and loop state, and each :meth:`replay`
-    runs one plain trip and writes the new state back into ``st``."""
-
-    def __init__(self, st: _State, ctx: _Ctx):
+    @classmethod
+    def captured(cls, inputs, cfg: EMConfig) -> "_Driver":
+        """Every stretch captured in a call's order, each after one run on
+        what the buffers hold then (so no later call captures), all into
+        one memory pool: they run one at a time on one stream, and each
+        one's results are copied into buffers outside the pool, so none
+        reads what another left there."""
         # plain tensors, so calls in and out of inference mode can fill them
         with torch.inference_mode(False):
-            p = ctx.pdfpar
-            self.ctx = ctx._replace(
-                pdfpar=p._replace(means=p.means.clone(),
-                                  weights=p.weights.clone()),
-                **{k: getattr(ctx, k).clone() for k in _CTX_TENSORS})
-            self.st = _State(*(x.clone() for x in st))
+            d = cls(dict(zip(_INPUTS, (x.clone() for x in inputs)),
+                         cfg=cfg))
+            shared: dict = {}
+            d.replays = {
+                name: _capture(functools.partial(d._write, fn),
+                               inputs[0].device, shared)
+                for name, fn in d.fns.items()}
+        return d
 
-            def step():
-                new = _body(self.st, self.ctx, with_split_merge=False)
-                for buf, x in zip(self.st, new):
-                    buf.copy_(x)
+    def _write(self, fn) -> None:
+        _store(self.ns, fn(self.ns))
 
-            self.graph = _capture(step, ctx.l.device)
+    def run(self, name: str) -> None:
+        if self.replays is None:
+            self.ns.update(self.fns[name](self.ns))
+            if name != "plain":
+                profiling.count("em.eager_segments")
+            return
+        self.replays[name]()
+        profiling.count("em.graph_trips" if name == "plain"
+                        else "em.graph_segments")
 
-    def load_ctx(self, ctx: _Ctx) -> None:
-        for buf, x in zip(_ctx_tensors(self.ctx), _ctx_tensors(ctx)):
-            buf.copy_(x)
+    def read(self, flag: str) -> bool:
+        return host_bool(self.ns[flag])
 
-    def replay(self) -> _State:
+    def setup(self, inputs) -> None:
+        if self.replays is None:
+            self.ns.update(zip(_INPUTS, inputs))
+        else:
+            for k, x in zip(_INPUTS, inputs):
+                self.ns[k].copy_(x)
+        self.run("setup")
+
+    def done(self) -> bool:
+        return self.read("done_all")
+
+    def trip(self, full: bool) -> None:
+        """One trip of the loop, in the span ``vp.em.iteration``."""
+        if self.replays is None:
+            st = _iteration(_ns_state(self.ns), _ns_ctx(self.ns), full)
+            self.ns.update(_with_done_all(st))
+            return
         with profiling.span("vp.em.iteration"):
-            self.graph()
-        profiling.count("em.graph_trips")
-        return self.st
+            self._trip(full)
+
+    def _trip(self, full: bool) -> None:
+        if not full:
+            self.run("plain")
+            return
+        cfg = self.cfg
+        self.run("head")
+        if cfg.do_split and self.read("split_any"):
+            self.run("split")
+        self.run("step")
+        if cfg.do_merge and self.read("merge_any"):
+            self._merges("merge")
+        self.run("tail")
+
+    def _merges(self, name: str) -> None:
+        while self.read("again_any"):
+            self.run(name)
+
+    def finalize(self) -> EMResult:
+        """The reference's convergence block: the final merge at 10x the
+        threshold, the per-VP refit, the uniqueness filter, the outlier
+        counts and the min-line prune. Captured, the result is in tensors
+        of its own: the next call overwrites the buffers."""
+        self.run("final_in")
+        if self.cfg.do_merge:
+            self._merges("final_merge")
+        self.run("final_mid")
+        while self.read("under_any"):
+            self.run("prune")
+        self.run("final_out")
+        r = [self.ns["r_" + k] for k in EMResult._fields]
+        return EMResult(*(r if self.replays is None
+                          else (x.clone() for x in r)))
+
+
+def _iteration(st: _State, ctx: _Ctx, with_split_merge: bool = True
+               ) -> _State:
+    """One trip from ``st``, op by op, in the span ``vp.em.iteration``: a
+    full trip's stretches and host reads, or the plain body
+    (``with_split_merge=False``)."""
+    with profiling.span("vp.em.iteration"):
+        d = _Driver(_ns_of(st, ctx))
+        d._trip(with_split_merge)
+        return _ns_state(d.ns)
 
 
 _local = threading.local()
 
 
 def _graphs() -> dict:
-    """This thread's captured plain bodies by key (a graph's buffers serve
+    """This thread's captured stretch sets by key (a set's buffers serve
     one call at a time)."""
     if not hasattr(_local, "graphs"):
         _local.graphs = {}
     return _local.graphs
 
 
-def _graph_of(st: _State, ctx: _Ctx) -> _Graph | None:
-    """The captured plain body for this call's shapes and configuration,
-    captured now if new; None off ``GRAPH_DEVICES`` and past
-    ``GRAPH_CAP``."""
-    if ctx.l.device.type not in GRAPH_DEVICES:
+def _graphs_of(inputs, cfg: EMConfig) -> _Driver | None:
+    """The captured stretches for these inputs' device, shapes and layout
+    and this configuration, captured now if new; None off
+    ``GRAPH_DEVICES`` and past ``GRAPH_CAP``."""
+    dev = inputs[0].device
+    if dev.type not in GRAPH_DEVICES:
         return None
-    key = (ctx.l.device, ctx.cfg,
-           tuple((x.shape, x.dtype) for x in _ctx_tensors(ctx) + tuple(st)))
+    key = (dev, cfg, tuple((x.shape, x.dtype, x.stride()) for x in inputs))
     graphs = _graphs()
     if key not in graphs and len(graphs) < GRAPH_CAP:
-        graphs[key] = _Graph(st, ctx)
+        graphs[key] = _Driver.captured(inputs, cfg)
     return graphs.get(key)
-
-
-class _PlainTrips:
-    """One call's plain trips: replays of its shapes' graph (the state
-    copied in when it comes from elsewhere), else the plain body op by
-    op."""
-
-    def __init__(self, st: _State, ctx: _Ctx):
-        self.ctx = ctx
-        self.graph = _graph_of(st, ctx)
-        if self.graph is not None:
-            self.graph.load_ctx(ctx)
-
-    def __call__(self, st: _State) -> _State:
-        g = self.graph
-        if g is None:
-            return _iteration(st, self.ctx, with_split_merge=False)
-        if st is not g.st:
-            for buf, x in zip(g.st, st):
-                buf.copy_(x)
-        return g.replay()
-
-    def own(self, st: _State) -> _State:
-        """``st`` in tensors of its own, not the graph's buffers, which the
-        next call overwrites."""
-        if self.graph is not None and st is self.graph.st:
-            return _State(*(x.clone() for x in st))
-        return st
 
 
 def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
@@ -636,15 +885,18 @@ def expectation_maximisation(l: torch.Tensor, lp: torch.Tensor,
     segments, cnn_response (B, 20, 20) sigmoid grids, sphere_image
     (B, S, S) in Agg orientation, lmask (B, N) validity."""
     with profiling.span("vp.em"):
-        st, ctx = _setup(l, lp, cnn_response, sphere_image, lmask, cfg)
-        plain = _PlainTrips(st, ctx)
+        inputs = (l, lp, cnn_response, sphere_image, lmask)
+        em = _graphs_of(inputs, cfg) or _Driver({"cfg": cfg})
+        with profiling.span("vp.em.setup"):
+            em.setup(inputs)
         t = 0
-        while not host_bool(st.done.all()):
+        while not em.done():
             if cfg.loop == "phase":
-                st = _iteration(st, ctx)
+                em.trip(True)
                 for _ in range(cfg.split_merge_freq - 1):
-                    st = plain(st)
+                    em.trip(False)
             else:
-                st = _iteration(st, ctx) if _full_trip(t, cfg) else plain(st)
+                em.trip(_full_trip(t, cfg))
             t += 1
-        return _finalize(plain.own(st), ctx)
+        with profiling.span("vp.em.finalize"):
+            return em.finalize()

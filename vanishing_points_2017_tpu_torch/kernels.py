@@ -13,8 +13,9 @@ builds nothing: the tests on a machine without a GPU import every module.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises on a non-zero
-code and counts successful launches, so a run can show that its main path
-went through the kernel.
+code and counts successful launches (through ``utils.profiling.tally``, so
+a CUDA graph's capture leaves the count to each replay), so a run can show
+that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import subprocess
 import time
 
 import torch
+
+from .utils import profiling
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -109,6 +112,9 @@ class CudaKernel:
             msg = self._lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc} "
                                f"({msg})")
+        profiling.tally(self._launched)
+
+    def _launched(self) -> None:
         self.launches += 1
 
 

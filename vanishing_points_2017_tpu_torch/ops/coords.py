@@ -17,7 +17,10 @@ import torch
 
 def index_to_angle(index: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     """(..., 2) grid indices (a, b), possibly fractional -> (alpha, beta)."""
-    m = torch.tensor(shape, dtype=index.dtype, device=index.device)
+    # made on the device: a copy from the host would break a CUDA graph
+    # capture (the EM's set-up reaches this)
+    m = torch.stack([torch.full((), float(s), dtype=index.dtype,
+                                device=index.device) for s in shape])
     return (index - 0.5 * m + 0.5) * math.pi / m
 
 

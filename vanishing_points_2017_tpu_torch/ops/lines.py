@@ -149,9 +149,8 @@ def line_rating_knn(lp: torch.Tensor, mask: torch.Tensor, k1: int = 10,
     topc, topi = topk_stable(cosphi, k2)
     topp = torch.gather(proxk, -1, topi)
     contrib = torch.where(topc > -0.5, topp * topc, 0.0)
-    k2_eff = torch.clamp(torch.minimum(
-        torch.tensor(float(k2), dtype=dist.dtype, device=dist.device),
-        num_valid.to(dist.dtype)), min=1.0)
+    # no tensor of k2: a copy from the host would break a CUDA graph capture
+    k2_eff = torch.clamp(num_valid.to(dist.dtype), min=1.0, max=float(k2))
     score = torch.sum(contrib, dim=-1) / k2_eff[..., None]
     return torch.where(mask, score, 0.0)
 

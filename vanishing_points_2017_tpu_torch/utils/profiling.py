@@ -9,6 +9,10 @@ the device trace's clock, and logging.
 * :func:`batch`: the root span ``vp.batch`` of one entry call, which
   opens the per-request counters; inside another batch it is the no-op.
 * :func:`count`: adds to a counter of the open batch; off, nothing.
+* :func:`tally`: makes a count kept outside the session (a hand-written
+  kernel's launches) through the same hold as :func:`count`.
+* :func:`held`: keeps the counts of a block (a CUDA graph's capture) for
+  the caller to make at each replay.
 * :func:`trace`: a kineto session that records the device's activity and,
   on the host, only the ``record_function`` ranges (the user scope:
   never every ATen op), so the loop runs near its untraced pace. It
@@ -27,10 +31,15 @@ The spans and the counters, and what reads them
 | ``vp.render`` | ``ops.sphere.sphere_image_uint8`` | ``render_span_ms`` |
 | ``vp.cnn`` | ``models.cnn.VPNet.forward`` | ``cnn_span_ms`` |
 | ``vp.em`` | ``em.em.expectation_maximisation``, per chunk | ``em_span_ms``, ``em_idle_ms``, ``em_launches`` |
-| ``vp.em.iteration`` | each ``em.em._iteration`` call and each ``em.em._Graph.replay`` (a plain trip's CUDA graph) | ``em_trips`` |
+| ``vp.em.setup`` | the EM's set-up (``em.em._Driver.setup``), inside ``vp.em`` | none yet |
+| ``vp.em.iteration`` | each EM trip (``em.em._Driver.trip``): an ``em.em._iteration`` call op by op, or a trip's graph replays and host reads | ``em_trips`` |
+| ``vp.em.finalize`` | the EM's convergence block (``em.em._Driver.finalize``), inside ``vp.em`` | none yet |
 | ``vp.horizon`` | ``em.horizon.calculate_horizon_and_ortho_vp``, per chunk | ``horizon_span_ms`` |
 | counter ``em.host_reads`` | ``em.reads.host_bool``: every device-to-host read of the EM | ``em_host_reads`` |
-| counter ``em.graph_trips`` | ``em.em._Graph.replay``: the EM's trips run as one CUDA graph replay | none yet |
+| counter ``em.graph_trips`` | ``em.em._Driver.run``: the EM's plain trips run as one CUDA graph replay | none yet |
+| counter ``em.graph_segments`` | ``em.em._Driver.run``: the EM's other stretches between two host reads, each one CUDA graph replay | none yet |
+| counter ``em.eager_segments`` | ``em.em._Driver.run``: those stretches run op by op (on the CPU, past ``GRAPH_CAP``) | none yet |
+| counter ``em.cluster_launches`` | ``em.cluster.agglomerative_two``: K3's launches, made again at each replay of a graph that holds one | none yet |
 | ``vp.batch`` | ``models.train.device_step`` | the training step each span, launch and idle interval belongs to |
 | ``vp.train.input`` | ``models.train.device_step``: the copy in, K2, floor and mean, the dropout masks | ``train_input_span_ms`` |
 | ``vp.train.forward`` | ``models.train.train_step``: ``VPNet.logits`` and the loss | ``train_forward_span_ms`` |
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import functools
 import logging
 import os
 
@@ -70,6 +80,7 @@ LAUNCH_CALLS = {"cuda_runtime", "cuda_driver"}
 
 _NOOP = contextlib.nullcontext()
 _session: "_Session | None" = None  # set while a trace session runs
+_held: "list | None" = None  # set inside held()
 
 
 def get_logger(name: str = "vp_torch") -> logging.Logger:
@@ -122,10 +133,37 @@ def _batch_span(s: _Session):
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` of the open batch (of the session
-    where no batch is open); nothing outside a session."""
-    if _session is not None:
+    where no batch is open); nothing outside a session. Inside
+    :func:`held`, kept for the caller to make instead."""
+    if _held is not None:
+        _held.append(functools.partial(count, name, n))
+    elif _session is not None:
         c = _session.current
         c[name] = c.get(name, 0) + n
+
+
+def tally(again) -> None:
+    """Make a count kept outside the session now, by calling ``again``
+    (a hand-written kernel's count of its launches); inside :func:`held`,
+    keep it for the caller to make instead."""
+    if _held is not None:
+        _held.append(again)
+    else:
+        again()
+
+
+@contextlib.contextmanager
+def held():
+    """The counts made inside the block (:func:`count`, :func:`tally`),
+    kept in the yielded list, each a call that makes it, and made nowhere
+    else: for work recorded now and run later (a CUDA graph's capture),
+    whose counts the caller makes again at each run."""
+    global _held
+    outer, _held = _held, []
+    try:
+        yield _held
+    finally:
+        _held = outer
 
 
 @contextlib.contextmanager
